@@ -1,0 +1,67 @@
+"""Unified abstraction layer (UAL) of the port: ``repro.ual``'s public API
+on PyTorch and CUDA::
+
+    from repro_torch import ual
+
+    program = ual.Program.from_kernel("gemm")              # what to run
+    target = ual.Target.from_name("hycube", rows=4, cols=4)  # where: cuda
+    exe = ual.compile(program, target)                     # cached pipeline
+    out = exe.run(A=a, B=b)                                # dict in/out
+    report = exe.validate(backends=("cuda", "sim"))        # vs the oracle
+
+Vocabulary, as in the reference:
+
+  * ``Program``  — DFG + scratchpad layout + named I/O spec, content-hashed
+    (the same digest as ``repro.ual.Program`` for the same kernel),
+  * ``Target``   — fabric + mapper strategy + backend name; the default
+    backend is ``cuda``,
+  * ``compile``  — the staged pass pipeline (layout -> MII bounds ->
+    mapping strategy -> lowering -> verify -> binding), memoized across
+    processes by ``(program.digest, target.digest)`` in this package's own
+    cache directory,
+  * ``verify``/``CheckReport`` — the compile-time config verifier,
+  * ``Executable`` — ``run``/``run_batch``/``validate`` on any backend,
+  * ``CompiledKernelCache``/``default_engine`` — the persistent engine
+    behind the ``cuda`` and ``torch`` backends: tables uploaded to the
+    device once, ``n_iters`` a kernel argument, batch sizes padded up a
+    bucket ladder.
+
+Backends: ``interp`` (the DFG oracle), ``sim`` (the vectorized numpy
+simulator), ``cuda`` (the hand-written kernel on the card; raises with no
+CUDA device) and ``torch`` (the kernel's plain PyTorch version on the CPU).
+Not ported yet: ``Service``, ``ClusterService``, fault plans, ``explore``
+and ``compile_many``, the sharded engine and streaming engine, ``check``.
+"""
+from repro_torch.analysis.verifier import (CheckReport, Diagnostic,
+                                           VerifyError, verify)
+from repro_torch.core.lowering import LinkedConfig, link_config
+from repro_torch.core.mapper import (MapperStrategy, list_strategies,
+                                     register_strategy)
+from repro_torch.ual.backends import (Backend, get_backend, list_backends,
+                                      register_backend)
+from repro_torch.ual.cache import (CACHE_VERSION, CacheStats, MappingCache,
+                                   default_cache, default_cache_dir,
+                                   set_default_cache)
+from repro_torch.ual.compiler import compile
+from repro_torch.ual.engine import (CompiledKernelCache, KernelEngine,
+                                    bucket_ladder, default_engine,
+                                    set_default_engine)
+from repro_torch.ual.executable import CompileInfo, Executable, PassRecord
+from repro_torch.ual.pipeline import (CompileContext, CompilePass, Pipeline,
+                                      VerifyPass, default_pipeline)
+from repro_torch.ual.program import Program
+from repro_torch.ual.target import (FABRICS, Target, list_fabrics,
+                                    register_fabric)
+
+__all__ = [
+    "Backend", "CACHE_VERSION", "CacheStats", "CheckReport",
+    "CompileContext", "CompileInfo", "CompiledKernelCache", "CompilePass",
+    "Diagnostic", "Executable", "FABRICS", "KernelEngine", "LinkedConfig",
+    "MapperStrategy", "MappingCache", "PassRecord", "Pipeline", "Program",
+    "Target", "VerifyError", "VerifyPass",
+    "bucket_ladder", "compile", "default_cache", "default_cache_dir",
+    "default_engine", "default_pipeline", "get_backend", "link_config",
+    "list_backends", "list_fabrics", "list_strategies", "register_backend",
+    "register_fabric", "register_strategy", "set_default_cache",
+    "set_default_engine", "verify",
+]

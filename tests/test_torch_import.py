@@ -1,0 +1,54 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
+package ``repro``, and importing it initialises no CUDA context.
+
+The import check runs in a subprocess, because this test session's
+conftest has already imported ``repro`` (and with it ``jax``).
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def test_import_pulls_in_no_jax_and_no_cuda():
+    code = (
+        "import sys, torch\n"
+        "import repro_torch, repro_torch.ual, repro_torch.interop\n"
+        "import repro_torch.kernels.cgra_exec.ops\n"
+        "import repro_torch.kernels.cgra_exec.edge_cases\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok', len(repro_torch.ual.list_backends()))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok", "4"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_jax_or_repro(path):
+    hits = [(name, line) for name, line in _imported_roots(path)
+            if name in FORBIDDEN]
+    assert not hits, f"{path.name} imports {hits}"
