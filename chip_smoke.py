@@ -3,19 +3,23 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
-It builds the hand-written kernels from the checkout's sources, holds each
-against its plain PyTorch version on the card, drives the port's main path
-(``ual.compile`` -> ``Executable.validate`` / ``run_batch`` on the ``cuda``
-backend) at the sizes the paper's users run — the benchmark kernels on
-HyCUBE 4x4 and PACE 8x8, an 8192-word scratchpad, batches of 4096 test
-vectors — and times the kernels.  Each phase prints one JSON line:
+It builds the hand-written kernels from the checkout's sources (one nvcc
+each, side by side), holds each against its plain PyTorch version on the
+card, drives the port's two paths through the user's entry points and
+times the kernels.  The execution path: ``ual.compile`` ->
+``Executable.validate`` / ``run_batch`` on the ``cuda`` backend at the sizes
+the paper's users run (the benchmark kernels on HyCUBE 4x4 and PACE 8x8, an
+8192-word scratchpad, batches of 4096 test vectors).  The serving path:
+qwen3-8b at its published widths (36 layers, random weights from the seed)
+through ``prefill_fn`` and ``greedy_generate``.  Each phase prints one JSON
+line:
 
   device           the card's name and power limit (``nvidia-smi``), versions
-  build            the kernels' build time and ptxas resource lines
-  kernel_vs_plain  per pair: kernel vs plain version, bit-exact at B = 4096,
-                   4 lanes vs the scalar reference simulator; the
+  build            per kernel: build time and ptxas resource lines
+  kernel_vs_plain  cgra_exec per pair: kernel vs plain version, bit-exact at
+                   B = 4096, 4 lanes vs the scalar reference simulator; the
                    hand-built edge-case table
   main_path        per pair: validate vs the interp oracle, run_batch(4096)
                    vs the sim backend, throughput, traces, launches
@@ -23,6 +27,17 @@ vectors — and times the kernels.  Each phase prints one JSON line:
   breakdown        gemm on HyCUBE: run_batch(4096) split on the host clock,
                    device time by kernel and the device's idle share
                    (torch.profiler)
+  flash_attention  per case: the kernel vs its plain version (per element
+                   2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want| in bf16),
+                   a planted fault (one KV tile dropped) that the bound
+                   must catch, kernel, plain and SDPA ms, the bound
+  lm_prefill       36 layers in bf16, B = 2 x 2048 tokens: wall ms, kernel
+                   launches, peak memory; the kernel path vs the plain
+                   path in f32 (checked) and in bf16, each vs the f32 model
+                   (printed)
+  lm_serve         greedy_generate, 4 requests x 16 new tokens: tok/s, ms
+                   per decode step, decode path vs prefill (checked in f32)
+  lm_breakdown     prefill and decode under torch.profiler
   kernels          the summary line of every kernel
 
 The raw ``nvidia-smi`` line comes next, and the last line is
@@ -33,7 +48,9 @@ JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,6 +71,41 @@ BUCKET = 128
 #: lanes): HBM3 bytes/s, and 132 SMs x 64 INT32 lanes x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core FLOP/s, and
+#: f32 FLOP/s without the tensor cores (the f32 kernel runs in full f32)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: (name, B, S, H, KV, D, dtype, causal, window) of the flash-attention
+#: phase: qwen3-8b's attention at B = 1 and at the main path's B = 2 (in
+#: bf16 and f32), danube-1.8b's width and 4096-token window at S = 8192, an
+#: encoder's full attention, a ragged length, and f32 at D = 64
+FLASH_CASES = [
+    ("qwen3-8b", 1, 2048, 32, 8, 128, "bfloat16", True, 0),
+    ("qwen3-8b-prefill", 2, 2048, 32, 8, 128, "bfloat16", True, 0),
+    ("qwen3-8b-prefill-f32", 2, 2048, 32, 8, 128, "float32", True, 0),
+    ("danube-window", 1, 8192, 32, 8, 80, "bfloat16", True, 4096),
+    ("non-causal", 1, 1024, 32, 8, 128, "bfloat16", False, 0),
+    ("ragged", 1, 200, 32, 8, 128, "bfloat16", True, 0),
+    ("f32-d64", 2, 512, 8, 2, 64, "float32", True, 0),
+]
+#: the kernel against its plain version, per element |got - want| <= atol
+#: + rtol * |want|.  f32: the reference's 2e-3 (tests/test_kernels.py).
+#: bf16: both round f32 values that agree to about 1e-6, so they differ by
+#: at most one bf16 ulp, 2^-7 |want| < 1e-2 |want|
+FLASH_TOL = {"bfloat16": (2e-3, 1e-2), "float32": (2e-3, 2e-3)}
+#: the planted fault each case must be caught at: the kernel's last block of
+#: FAULT_ROWS query rows skips the first tile of FAULT_TILE keys it sees
+FAULT_ROWS, FAULT_TILE = 64, 32
+#: the serving phases: qwen3-8b at full width, B = 2 prompts of 2048 tokens,
+#: 4 requests x 16 new tokens
+LM_ARCH, PREFILL_B, PREFILL_S = "qwen3-8b", 2, 2048
+SERVE_REQUESTS, SERVE_NEW = 4, 16
+#: the serving profiles' kernel groups: the attention kernel, and cuBLAS's
+#: matrix products (its Hopper kernels are named nvjet / sm90_xmma)
+LM_GROUPS = {
+    "attn_kernel_ms": lambda n: "attn_kernel" in n,
+    "gemm_ms": lambda n: ("gemm" in n or "cutlass" in n or "nvjet" in n
+                          or "sm90_xmma" in n),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -105,12 +157,7 @@ def time_ms(fn, reps: int, warmup: int = 1):
 def breakdown(program, exe, rng) -> dict:
     """One warm ``run_batch`` of BATCH vectors on the ``cuda`` backend,
     split on the host clock into flatten / engine / unflatten, and once
-    more under ``torch.profiler``: device time by kernel name and the
-    device's idle share of that profiled call's wall time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    more under ``torch.profiler`` (``device_profile``)."""
     from repro_torch import ual
     mems = [program.random_inputs(rng) for _ in range(BATCH)]
     exe.run_batch(mems)                                     # warm
@@ -122,45 +169,78 @@ def breakdown(program, exe, rng) -> dict:
     t2 = time.perf_counter()
     program.unflatten_batch(out)
     t3 = time.perf_counter()
+    return {
+        "flatten_s": t1 - t0, "engine_run_s": t2 - t1,
+        "unflatten_s": t3 - t2, "run_batch_s": t3 - t0,
+        **device_profile(lambda: exe.run_batch(mems))}
+
+
+def device_profile(fn, groups=None) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: its wall time, the
+    device's busy time and idle share of it, device time by kernel name
+    (the top ten, as [calls, ms]), and the device ms of each of
+    ``groups`` (name -> predicate on a kernel's lower-cased name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        p0 = time.perf_counter()
-        exe.run_batch(mems)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        p1 = time.perf_counter()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): a CPU op's device time
     # repeats the time of the kernels it launched
     device = [ev for ev in prof.key_averages()
               if ev.device_type != DeviceType.CPU
               and ev.device_time_total > 0]
-    busy_s = sum(ev.device_time_total for ev in device) / 1e6
-    wall_p = p1 - p0
-    top = sorted(device, key=lambda ev: -ev.device_time_total)[:6]
-    return {
-        "flatten_s": t1 - t0, "engine_run_s": t2 - t1,
-        "unflatten_s": t3 - t2, "run_batch_s": t3 - t0,
-        "profiled_wall_s": wall_p,
-        "device_busy_s": busy_s if device else None,
-        "device_idle_share": 1 - busy_s / wall_p if device else None,
-        # name (cut to 60 characters): [calls, total device ms]
+    busy_ms = sum(ev.device_time_total for ev in device) / 1e3
+    top = sorted(device, key=lambda ev: -ev.device_time_total)[:10]
+    out = {
+        "profiled_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if device else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if device else None,
         "device_ms_by_kernel": {ev.key[:60]: [ev.count,
                                               ev.device_time_total / 1e3]
-                                for ev in top},
-    }
+                                for ev in top}}
+    for name, pred in (groups or {}).items():
+        out[name] = sum(ev.device_time_total for ev in device
+                        if pred(ev.key.lower())) / 1e3
+    return out
 
 
-def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
-        print("chip_smoke: run from the root of a repo checkout "
-              "(src/repro_torch is missing)", file=sys.stderr)
-        return 2
+def build_all() -> None:
+    """Build every kernel library at once, one nvcc each, all started
+    together; one ``build`` line per kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.cgra_exec import ops as cgra_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        lib = mod.build()
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        futs = {name: pool.submit(timed, mod) for name, mod in
+                (("cgra_exec", cgra_ops), ("flash_attention", fa_ops))}
+        for name, fut in futs.items():
+            lib, seconds = fut.result()
+            ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
+                     .splitlines() if "registers" in ln or "spill" in ln]
+            emit("build", kernel=name, seconds=round(seconds, 3),
+                 library=lib.name, ptxas=ptxas)
+
+
+def cgra_phases(dev, rng) -> dict:
+    """The execution path: every pair compiled through the port's own
+    toolchain, the kernel against its plain version, ``validate`` and
+    ``run_batch`` on the ``cuda`` backend with the launches counted, the
+    kernel's time, and a profile of ``run_batch``.  Returns the kernel's
+    summary entry."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels run on the "
-              "card only", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
-    import numpy as np
 
     from repro_torch import ual
     from repro_torch.core.lowering import link_config
@@ -170,26 +250,7 @@ def main() -> int:
                                                           edge_case_images)
     from repro_torch.kernels.cgra_exec.ref import cgra_exec_torch
 
-    check("jax" not in sys.modules and "repro" not in sys.modules,
-          "the port imported jax or the JAX package")
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    emit("device", name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0])
-
-    # ---- build ---------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = ops.build()
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
-    emit("build", kernel="cgra_exec", seconds=round(time.perf_counter() - t0, 3),
-         library=lib.name, ptxas=ptxas)
-
     # ---- compile every pair through the port's own toolchain -----------------
-    rng = np.random.default_rng(0)
     compiled = {}
     for kname, fab, kw in PAIRS:
         program = ual.Program.from_kernel(kname)
@@ -303,7 +364,7 @@ def main() -> int:
 
     # ---- summary -------------------------------------------------------------
     lead = rows[("gemm", "hycube")]
-    print(json.dumps({"kernels": [{
+    return {
         "name": "cgra_exec", "route": "cuda",
         "source": "src/repro_torch/kernels/cgra_exec/csrc/cgra_exec.cu",
         "replaces": "src/repro/kernels/cgra_exec/kernel.py:83",
@@ -313,7 +374,362 @@ def main() -> int:
         "bound_ms": lead[f"bound_ms_B{BUCKET}"], "bound_by": lead["bound_by"],
         "library_ms": None,
         "shape": f"gemm on {lead['fabric']}, M={lead['M']}, B={BUCKET}, "
-                 f"n_iters={lead['n_iters']}"}]}), flush=True)
+                 f"n_iters={lead['n_iters']}"}
+
+
+def attention_bound(B, Sq, Skv, H, KV, D, dtype, causal, window):
+    """Least time for one attention call: 4 * D flops per (query, key)
+    pair the mask keeps, over the peak rate of ``dtype``, against q, k, v
+    read once and the output written once over HBM's rate."""
+    import torch
+    q = torch.arange(Sq, dtype=torch.int64)
+    lo = (q - window + 1).clamp_min(0) if window > 0 else torch.zeros_like(q)
+    hi = q.clamp_max(Skv - 1) if causal else torch.full_like(q, Skv - 1)
+    pairs = int((hi - lo + 1).clamp_min(0).sum())
+    flops = 4 * D * pairs * B * H
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (2 * B * Sq * H * D + 2 * B * Skv * KV * D)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def sdpa(q, k, v, causal, window):
+    """One PyTorch call computing the same attention (the yardstick only:
+    the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window > 0:
+        Sq, Skv = q.shape[1], k.shape[1]
+        qp = torch.arange(Sq, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None, :]
+        keep = (qp - kp) < window
+        if causal:
+            keep &= qp >= kp
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                              enable_gqa=True)
+    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                          enable_gqa=True)
+
+
+def excess(got, want, dt: str) -> float:
+    """The largest amount by which ``got`` lies outside the bound of
+    ``FLASH_TOL[dt]`` around ``want`` (<= 0: within it everywhere)."""
+    atol, rtol = FLASH_TOL[dt]
+    want = want.float()
+    return float(((got.float() - want).abs()
+                  - (atol + rtol * want.abs())).max())
+
+
+def dropped_tile(q, k, v, causal: bool, window: int):
+    """What a faulty kernel returns for the last FAULT_ROWS query rows if
+    its walk skips the first KV tile of FAULT_TILE keys those rows see: the
+    plain arithmetic in f32 with those keys masked, in q's dtype."""
+    import torch
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    qf = q[:, -FAULT_ROWS:].float() * (1.0 / math.sqrt(D))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf,
+                     k.float().repeat_interleave(G, dim=2))
+    qp = torch.arange(S - FAULT_ROWS, S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    keep = torch.ones((FAULT_ROWS, S), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= qp >= kp
+    if window > 0:
+        keep &= (qp - kp) < window
+    first = max(0, S - FAULT_ROWS - window + 1) if window > 0 else 0
+    lo = first // FAULT_TILE * FAULT_TILE
+    keep[:, lo:lo + FAULT_TILE] = False
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p,
+                        v.float().repeat_interleave(G, dim=2)).to(q.dtype)
+
+
+def flash_phases(dev) -> dict:
+    """The flash-attention kernel against its plain version on every case,
+    with the planted fault of ``dropped_tile`` held to the same bound (it
+    must fail it), the kernel's time, the plain version's, SDPA's and the
+    bound.  Returns the kernel's summary entry, less the main path's
+    launches."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+    max_err = 0.0
+    for name, B, S, H, KV, D, dt, causal, window in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_torch(q, k, v, causal=causal, window=window)
+        fault = dropped_tile(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        over = excess(got, want, dt)
+        fault_err = float((fault.float() - want[:, -FAULT_ROWS:].float())
+                          .abs().max())
+        fault_over = excess(fault, want[:, -FAULT_ROWS:], dt)
+        atol, rtol = FLASH_TOL[dt]
+        check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite")
+        check(over <= 0, f"flash {name}: max |err| {err} beyond {atol} "
+                         f"+ {rtol} |want| (by {over})")
+        check(fault_over > 0, f"flash {name}: the bound {atol} + {rtol} "
+                              f"|want| lets a dropped KV tile through "
+                              f"(max |err| {fault_err})")
+        max_err = max(max_err, err)
+        ms, host_ms = time_ms(lambda: ops.flash_attention(
+            q, k, v, causal=causal, window=window), reps=10, warmup=2)
+        plain_ms, _ = time_ms(lambda: flash_attention_torch(
+            q, k, v, causal=causal, window=window), reps=2)
+        lib_ms, _ = time_ms(lambda: sdpa(q, k, v, causal, window), reps=10,
+                            warmup=2)
+        b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, KV, D, dt,
+                                                    causal, window)
+        rows[name] = row = {
+            "case": name, "B": B, "S": S, "H": H, "KV": KV, "D": D,
+            "dtype": dt, "causal": causal, "window": window,
+            "max_abs_err": err, "atol": atol, "rtol": rtol,
+            "excess": over, "fault_max_abs_err": fault_err,
+            "fault_excess": fault_over, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "flops": flops, "bytes": nbytes,
+            "tflop_s": flops / ms / 1e9}
+        emit("flash_attention", **row)
+    lead = rows["qwen3-8b-prefill"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:29",
+        "launches": None, "max_abs_err": max_err,
+        "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+        "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+        "library_ms": lead["library_ms"],
+        "shape": "qwen3-8b prefill attention: B=2, S=2048, H=32, KV=8, "
+                 "D=128, bf16, causal"}
+
+
+def to_f32(tree):
+    """An f32 copy of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k: to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_f32(v) for v in tree]
+    return tree.float()
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within the block, the model's attention on the card is the kernel's
+    plain version (``flash_attention_torch``) in place of the kernel: the
+    plain path the kernel path is held against."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.models import layers
+    kernel = layers.flash_attention
+    layers.flash_attention = flash_attention_torch
+    try:
+        yield
+    finally:
+        layers.flash_attention = kernel
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def lm_phases(dev, seed: int) -> dict:
+    """qwen3-8b at full width: the main path (``prefill_fn`` on B = 2
+    prompts of 2048 tokens, ``greedy_generate`` for 4 requests), the kernel
+    path against the plain path and both against the f32 model (all 36
+    layers), the decode path against prefill, and profiles.  Returns the
+    main path's flash-attention launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models.common import init_params, param_bytes
+    from repro_torch.models.lm import forward, init_cache
+    from repro_torch.serve.serve_step import decode_fn, prefill_fn
+
+    cfg = get_config(LM_ARCH)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S)).astype(np.int32)).to(dev)
+    prompts = [rng.integers(0, cfg.vocab, rng.integers(4, 12))
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+
+    # ---- the main path, through the user's entry points ------------------
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill = prefill_fn(cfg)
+    batch = {"tokens": tokens}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    walls = []
+    for _ in range(2):                       # cold, then warm
+        t0 = time.perf_counter()
+        last = prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prefill_launches = ops.launches()
+    peak_prefill = torch.cuda.max_memory_allocated()
+    serve_walls, outs = [], []
+    for _ in range(2):                       # cold, then warm
+        t0 = time.perf_counter()
+        outs.append(greedy_generate(params, cfg, prompts, SERVE_NEW,
+                                    max_len=64 + SERVE_NEW))
+        serve_walls.append(time.perf_counter() - t0)
+    main_launches = ops.launches()
+    check(prefill_launches == 2 * cfg.n_layers,
+          f"prefill launched the kernel {prefill_launches} times, expected "
+          f"{cfg.n_layers} per prefill")
+    check(bool(torch.isfinite(last).all()), "prefill logits not finite")
+    check(tuple(last.shape) == (PREFILL_B, cfg.vocab),
+          f"prefill logits {tuple(last.shape)}")
+
+    # ---- all 36 layers: the kernel path against the plain path -----------
+    # checked in f32.  In bf16 a one-ulp difference in one attention output
+    # grows layer by layer with these random weights, so any two bf16 paths
+    # end 0.1-0.3 apart at the logits: the bf16 numbers are printed, not
+    # checked, and the kernel's bf16 arithmetic is held per call above
+    t0 = time.perf_counter()
+    with plain_attention():
+        plain = forward(params, cfg, tokens)[0][:, -1]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = to_f32(params)                 # the same weights, in f32
+    kern32 = forward(params32, cfg32, tokens)[0][:, -1]
+    with plain_attention():
+        plain32 = forward(params32, cfg32, tokens)[0][:, -1]
+    err = {"kernel_vs_plain": rel_l2(last, plain),
+           "kernel_vs_f32": rel_l2(last, plain32),
+           "plain_vs_f32": rel_l2(plain, plain32),
+           "f32_kernel_vs_f32_plain": rel_l2(kern32, plain32)}
+    top1 = {name: float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            for name, a, b in (("kernel_vs_plain", last, plain),
+                               ("kernel_vs_f32", last, plain32),
+                               ("plain_vs_f32", plain, plain32))}
+    emit("lm_prefill", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
+         B=PREFILL_B, S=PREFILL_S, params=cfg.param_count(),
+         param_bytes=param_bytes(params), init_s=init_s,
+         wall_ms_cold=walls[0], wall_ms=walls[1],
+         tokens_per_s=PREFILL_B * PREFILL_S / walls[1] * 1e3,
+         plain_path_wall_ms=plain_ms, flash_launches=prefill_launches,
+         flash_launches_per_prefill=prefill_launches // 2,
+         peak_memory_bytes=peak_prefill, rel_l2=err, top1_agreement=top1,
+         tol_f32=2e-3)
+    check(err["f32_kernel_vs_f32_plain"] <= 2e-3,
+          f"f32 36-layer prefill: kernel vs plain rel L2 "
+          f"{err['f32_kernel_vs_f32_plain']}")
+    del plain, kern32, plain32
+
+    # ---- serving ------------------------------------------------------------
+    toks = outs[1]
+    steps = max(len(p) for p in prompts) + SERVE_NEW
+    check(toks.shape == (SERVE_REQUESTS, SERVE_NEW), f"tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token ids")
+    check(bool((outs[0] == outs[1]).all()), "greedy decoding not repeatable")
+    # the decode path against prefill on request 0's prompt (its last
+    # logits after the prompt ran token by token): checked in f32; the bf16
+    # numbers, as above, are printed
+    p0 = torch.from_numpy(prompts[0][None, :]).to(dev)
+
+    def decoded(params, cfg):
+        cache = init_cache(cfg, 1, p0.shape[1], device=dev)
+        decode = decode_fn(cfg)
+        for t in range(p0.shape[1]):
+            _, logits, cache = decode(params, cache, p0[:, t:t + 1])
+        return logits[:, -1]
+    dec, dec32 = decoded(params, cfg), decoded(params32, cfg32)
+    pre, pre32 = (prefill_fn(c)(p, {"tokens": p0})
+                  for p, c in ((params, cfg), (params32, cfg32)))
+    del params32
+    torch.cuda.empty_cache()
+    err = {"decode_vs_prefill": rel_l2(dec, pre),
+           "decode_vs_f32": rel_l2(dec, pre32),
+           "prefill_vs_f32": rel_l2(pre, pre32),
+           "f32_decode_vs_f32_prefill": rel_l2(dec32, pre32)}
+    emit("lm_serve", arch=cfg.name, requests=SERVE_REQUESTS,
+         new_tokens=SERVE_NEW, decode_steps=steps, wall_s_cold=serve_walls[0],
+         wall_s=serve_walls[1],
+         tok_s=SERVE_REQUESTS * SERVE_NEW / serve_walls[1],
+         ms_per_decode_step=serve_walls[1] / steps * 1e3,
+         prompt_len=int(p0.shape[1]), rel_l2=err, sample=toks[0].tolist())
+    check(err["f32_decode_vs_f32_prefill"] <= 2e-3,
+          f"f32 decode vs prefill rel L2 {err['f32_decode_vs_f32_prefill']}")
+
+    # ---- where the time goes --------------------------------------------------
+    emit("lm_breakdown", step="prefill", B=PREFILL_B, S=PREFILL_S,
+         **device_profile(lambda: prefill(params, batch), LM_GROUPS))
+    decode = decode_fn(cfg)
+    cache = init_cache(cfg, SERVE_REQUESTS, 64, device=dev)
+    tok = torch.zeros((SERVE_REQUESTS, 1), dtype=torch.int32, device=dev)
+    for _ in range(8):
+        tok, _, cache = decode(params, cache, tok)
+
+    def four_steps():
+        nonlocal tok, cache
+        for _ in range(4):
+            tok, _, cache = decode(params, cache, tok)
+    # the host's time to enqueue a step against the card's time to run it
+    step_ms, enqueue_ms = time_ms(four_steps, reps=2)
+    emit("lm_breakdown", step="decode x4", B=SERVE_REQUESTS,
+         cache_len=cache["len"], device_ms_per_step=step_ms / 4,
+         host_enqueue_ms_per_step=enqueue_ms / 4,
+         **device_profile(four_steps, LM_GROUPS))
+    return {"launches": main_launches}
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the prompts and the random weights")
+    args = ap.parse_args(argv)
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke: run from the root of a repo checkout "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run on the "
+              "card only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    # f32 products in full f32, as the reference's tolerances assume
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    emit("device", name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0])
+
+    build_all()
+    cgra = cgra_phases(dev, np.random.default_rng(args.seed))
+    flash = flash_phases(dev)
+    flash["launches"] = lm_phases(dev, args.seed)["launches"]
+    check(flash["launches"] > 0, "the serving path never launched "
+                                 "flash_attention")
+    check("jax" not in sys.modules and "repro" not in sys.modules,
+          "the port imported jax or the JAX package")
+    print(json.dumps({"kernels": [cgra, flash]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,46 @@
+"""Architecture registry: ``--arch <id>`` resolves through ``get_config``.
+
+The dense architectures of the JAX package's registry, at their published
+widths; the other families' configurations come with their ports
+(ROADMAP A9).  ``smoke_config`` gives a reduced same-family configuration
+for CPU tests, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.configs.gemma3_27b import CONFIG as _gemma3
+from repro_torch.configs.h2o_danube3_4b import CONFIG as _danube3
+from repro_torch.configs.h2o_danube_1_8b import CONFIG as _danube18
+from repro_torch.configs.qwen3_8b import CONFIG as _qwen3
+from repro_torch.models.common import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in (_gemma3, _qwen3, _danube3, _danube18)
+}
+
+FAMILIES = {name: c.family for name, c in ARCHS.items()}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family config: tiny layers/width/vocab (the reference's
+    reductions for the dense family)."""
+    c = get_config(name)
+    kw = dict(
+        n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=256,
+        head_dim=16, rope_theta=10000.0,
+    )
+    if c.n_kv_heads:
+        kw["n_kv_heads"] = min(c.n_kv_heads, 2)
+    if c.sliding_window:
+        kw["sliding_window"] = 8
+    if c.global_every:
+        kw["global_every"] = 2
+    return dataclasses.replace(c, **kw)

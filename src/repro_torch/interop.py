@@ -10,7 +10,10 @@ JSON (``Fabric.to_json``).  Nothing here imports another package.
   * ``config_state`` / ``machine_config`` — a ``MachineConfig``,
   * ``map_state`` / ``map_result`` — the ``MapResult`` fields the pipeline
     and ``Executable`` read, with its configuration,
-  * ``linked_state`` / ``linked_config`` — the lowered ``LinkedConfig``.
+  * ``linked_state`` / ``linked_config`` — the lowered ``LinkedConfig``,
+  * ``lm_params_from_state`` — a language model's parameters, from the
+    reference's stacked numpy arrays, so both packages compute on the same
+    weights.
 
 The ``*_state`` readers take any object with the same attribute names, so
 they read the reference's objects as well as the port's.
@@ -20,11 +23,13 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.adl import Fabric
 from repro_torch.core.lowering import LinkedConfig
 from repro_torch.core.machine import MachineConfig
 from repro_torch.core.mapper import MapResult
+from repro_torch.models.common import ModelConfig, check_family
 
 CONFIG_ARRAYS = ("opcode", "const", "use_const", "t0", "node_id", "op_src",
                  "xbar", "regw")
@@ -86,3 +91,41 @@ def linked_config(state: Dict[str, object]) -> LinkedConfig:
     fields["mem_pes"] = tuple(int(p) for p in fields["mem_pes"])
     arrays = {name: np.array(state[name], np.int32) for name in LINKED_ARRAYS}
     return LinkedConfig(**fields, **arrays)
+
+
+#: numpy dtype names of the reference's parameters -> the port's dtypes
+#: (bf16 arrives as ml_dtypes' ``bfloat16``, which torch cannot read)
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name not in TORCH_DTYPES:
+        raise ValueError(f"no torch dtype for parameter dtype {a.dtype}")
+    # a writable f32 copy, which holds every bf16 value exactly
+    t = torch.from_numpy(np.array(a, np.float32))
+    return t.to(device=device, dtype=TORCH_DTYPES[a.dtype.name])
+
+
+def lm_params_from_state(state: Dict[str, object], cfg: ModelConfig,
+                         device) -> Dict[str, object]:
+    """The port's parameters from a reference parameter tree as numpy
+    arrays (per-layer weights stacked on a leading ``(L, ...)`` axis, as the
+    reference's ``init_params`` makes them), on ``device``, each in its own
+    dtype."""
+    check_family(cfg)
+    L = cfg.n_layers
+    for name in ("norm1", "norm2"):
+        if np.shape(state[name])[0] != L:
+            raise ValueError(f"{name} stacks {np.shape(state[name])[0]} "
+                             f"layers, the config has {L}")
+    params: Dict[str, object] = {
+        name: _tensor(state[name], device)
+        for name in ("embed", "final_norm", "lm_head") if name in state}
+    params["layers"] = [{
+        "attn": {n: _tensor(w[i], device) for n, w in state["attn"].items()},
+        "mlp": {n: _tensor(w[i], device) for n, w in state["mlp"].items()},
+        "norm1": _tensor(state["norm1"][i], device),
+        "norm2": _tensor(state["norm2"][i], device),
+    } for i in range(L)]
+    return params

@@ -1,0 +1,134 @@
+"""Public wrapper of the hand-written flash-attention kernel.
+
+``flash_attention(q, k, v, causal=..., window=...)`` launches the kernel
+(``csrc/flash_attention.cu``) when the tensors lie on a CUDA device and
+raises if it cannot; only CPU tensors go to the plain PyTorch version
+(``ref.flash_attention_torch``).  Every launch adds one to the module's
+launch count (``launches()``), so a run can show that it went through the
+kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import threading
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+#: the dtypes the kernel takes, by the code its C entry point reads
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the widest head the kernel's templates cover (D is padded to 32s)
+MAX_HEAD_DIM = 256
+
+_launches = 0
+_count_lock = threading.Lock()
+
+
+def launches() -> int:
+    """Kernel launches since the last ``reset_launches`` (CUDA only)."""
+    with _count_lock:
+        return _launches
+
+
+def reset_launches() -> None:
+    global _launches
+    with _count_lock:
+        _launches = 0
+
+
+def build() -> Path:
+    """Build the kernel library (no-op when it exists); returns its path."""
+    return _build.build("flash_attention", SOURCES, {})
+
+
+@functools.cache
+def _launcher():
+    """The library's C entry point, built and loaded once per process."""
+    fn = _build.load("flash_attention", SOURCES,
+                     {}).flash_attention_launch
+    # q, k, v, o; dtype, B, Sq, Skv, H, KV, D, causal, window; scale; stream
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, window: int) -> Tuple[int, int, int, int, int, int]:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
+    B, Sq, H, D = q.shape
+    Bk, Skv, KV, Dk = k.shape
+    if tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    if Bk != B or Dk != D:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head width")
+    if min(B, Sq, Skv, H, KV, D) < 1 or H % KV:
+        raise ValueError(f"need non-empty shapes and H % KV == 0, got "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in DTYPES:
+        raise ValueError(f"q, k, v must share one dtype of "
+                         f"{sorted(map(str, DTYPES))}, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
+    if int(window) < 0:
+        raise ValueError(f"window must be >= 0 (0: none), got {window}")
+    if window > 0 and Sq - Skv >= window:
+        # rows qp >= Skv - 1 + window see no key: the TPU kernel gives them
+        # the mean of V over every key, padding included, which the kernel's
+        # tile skipping does not reproduce
+        raise ValueError(f"window {window} leaves query rows from "
+                         f"{Skv - 1 + window} on with no key (Sq {Sq}, "
+                         f"Skv {Skv})")
+    return B, Sq, H, D, Skv, KV
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Causal / sliding-window / full GQA attention.
+
+    q: (B, Sq, H, D); k/v: (B, Skv, KV, D); f32 or bf16, accumulated in f32;
+    returns (B, Sq, H, D) in q's dtype.  ``window`` > 0 keeps keys with
+    ``q_pos - k_pos < window``; positions are absolute and 0-based for both
+    q and k.  A window that leaves a query row no key raises on every
+    device.  On CUDA tensors this launches the kernel on the current
+    stream, without synchronising, or raises; CPU tensors run the plain
+    version."""
+    global _launches
+    B, Sq, H, D, Skv, KV = _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v, causal=causal,
+                                     window=int(window))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("the kernel takes contiguous q, k, v")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head width {D} > {MAX_HEAD_DIM}")
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H} exceeds the grid's 65535 rows")
+    out = torch.empty_like(q)
+    fn = _launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 DTYPES[q.dtype], B, Sq, Skv, H, KV, D, int(bool(causal)),
+                 int(window), 1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    with _count_lock:
+        _launches += 1
+    return out

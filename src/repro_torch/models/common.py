@@ -1,0 +1,203 @@
+"""Model configuration and parameter initialisation (the JAX package's
+``models/common.py``, in PyTorch).
+
+``ModelConfig`` keeps every field of the reference, so that its
+architectures describe themselves the same way in both packages; ``dtype``
+is a ``torch.dtype``.  Parameters are plain nested dicts of tensors.  Where
+the reference stacks per-layer weights on a leading axis for ``lax.scan``,
+the port keeps one dict per layer in ``params["layers"]`` and loops over
+them in Python.
+
+Only the dense family is ported; the others raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+
+#: families the port does not run yet -> the ROADMAP item that brings them
+UNPORTED_FAMILIES = {
+    "moe": "ROADMAP A9 (models/moe)",
+    "rwkv6": "ROADMAP B4 and A9 (models/rwkv6 with the rwkv6 kernel)",
+    "zamba2": "ROADMAP B3 and A9 (models/mamba2 with the mamba2_ssd kernel)",
+    "hubert": "ROADMAP A9 (the audio front end)",
+    "paligemma": "ROADMAP A9 (the image front end, prefix-LM attention)",
+}
+
+
+def check_family(cfg: "ModelConfig") -> None:
+    """Raise unless the port runs ``cfg``'s family (only ``dense`` so far)."""
+    if cfg.family == "dense":
+        return
+    if cfg.family in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
+            f"{UNPORTED_FAMILIES[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family}")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | rwkv6 | zamba2 | hubert | paligemma
+    n_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    vocab: int
+    n_kv_heads: int = 0              # 0 -> = n_heads
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    # attention flavor
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int = 0          # 0 = full attention
+    global_every: int = 0            # gemma3: every Nth layer global (0 = all)
+    causal: bool = True
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    dense_residual: bool = False     # arctic: dense FFN alongside experts
+    capacity_factor: float = 1.25
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64
+    shared_attn_every: int = 0       # zamba2: shared attention period
+    # modality frontend (stub supplies embeddings)
+    frontend: str = "none"           # none | audio | image
+    n_prefix_tokens: int = 0         # paligemma image tokens
+    # numerics
+    dtype: Any = torch.bfloat16
+    mlp_act: str = "silu"            # silu | gelu
+    tie_embeddings: bool = True
+    # distribution fields of the reference, kept so that a configuration
+    # reads the same in both packages; one card has no sharding (ROADMAP A10)
+    shard_strategy: str = "tp2d"
+    grad_reduce: str = "auto"
+    # KV block size of the plain blockwise attention (0 = one full block)
+    attn_block_kv: int = 512
+    moe_groups: int = 1
+    attn_head_shard: str = "auto"
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def scaled(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    # -- parameter counting ------------------------------------------------
+    def param_count(self) -> int:
+        c = self
+        d, hd = c.d_model, c.hd
+        emb = c.vocab * d
+        per_layer = 0
+        if c.family in ("dense", "moe", "hubert", "paligemma"):
+            attn = d * hd * (c.n_heads + 2 * c.kv_heads) + c.n_heads * hd * d
+            per_layer += attn + 2 * d                      # + norms
+            if c.family == "moe":
+                eff = c.expert_d_ff or c.d_ff
+                per_layer += 3 * d * eff * (c.n_experts + c.n_shared_experts)
+                per_layer += d * c.n_experts               # router
+                if c.dense_residual:
+                    per_layer += 3 * d * c.d_ff
+            else:
+                n_mats = 3 if c.mlp_act == "silu" else 2
+                per_layer += n_mats * d * c.d_ff
+        elif c.family == "rwkv6":
+            per_layer = 6 * d * d + 3 * d * c.d_ff + 4 * d
+        elif c.family == "zamba2":
+            d_in = 2 * d
+            per_layer = (d * (2 * d_in + 2 * c.ssm_state) + d_in * d
+                         + 4 * d)                           # mamba2 mixer approx
+        n = emb + c.n_layers * per_layer
+        if c.family == "zamba2" and c.shared_attn_every:
+            attn = d * hd * (c.n_heads + 2 * c.kv_heads) + c.n_heads * hd * d
+            n += attn + 3 * d * c.d_ff
+        return n
+
+
+# ---------------------------------------------------------------------------
+# Initializers (one dict per layer)
+# ---------------------------------------------------------------------------
+
+def _dense(gen: torch.Generator, shape, device, dtype, scale=None):
+    """Normal(0, 1) * scale (default 1/sqrt(fan_in)), drawn in f32 one
+    tensor at a time and cast to ``dtype``."""
+    scale = scale or (1.0 / math.sqrt(shape[-2] if len(shape) > 1
+                                      else shape[-1]))
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return w.mul_(scale).to(dtype)
+
+
+def init_attention(gen, c: ModelConfig, device, dtype) -> Dict:
+    d, hd, H, KV = c.d_model, c.hd, c.n_heads, c.kv_heads
+    p = {
+        "wq": _dense(gen, (d, H * hd), device, dtype),
+        "wk": _dense(gen, (d, KV * hd), device, dtype),
+        "wv": _dense(gen, (d, KV * hd), device, dtype),
+        "wo": _dense(gen, (H * hd, d), device, dtype),
+    }
+    if c.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def init_mlp(gen, d_in, d_ff, act, device, dtype) -> Dict:
+    p = {
+        "w_up": _dense(gen, (d_in, d_ff), device, dtype),
+        "w_down": _dense(gen, (d_ff, d_in), device, dtype),
+    }
+    if act == "silu":
+        p["w_gate"] = _dense(gen, (d_in, d_ff), device, dtype)
+    return p
+
+
+def init_params(gen: torch.Generator, c: ModelConfig, device) -> Dict:
+    """Random parameters of a dense model, drawn from ``gen`` (a generator
+    on ``device``) with the reference's shapes and scales: normal times
+    1/sqrt(fan_in), the embedding times 0.02, norms set to ones.  Weights
+    are made one tensor at a time, so no f32 copy of the model is ever
+    held."""
+    check_family(c)
+    dtype, d = c.dtype, c.d_model
+    params: Dict[str, Any] = {
+        "embed": _dense(gen, (c.vocab, d), device, dtype, scale=0.02),
+        "final_norm": torch.ones((d,), dtype=dtype, device=device),
+    }
+    if not c.tie_embeddings:
+        params["lm_head"] = _dense(gen, (d, c.vocab), device, dtype)
+    params["layers"] = [{
+        "attn": init_attention(gen, c, device, dtype),
+        "mlp": init_mlp(gen, d, c.d_ff, c.mlp_act, device, dtype),
+        "norm1": torch.ones((d,), dtype=dtype, device=device),
+        "norm2": torch.ones((d,), dtype=dtype, device=device),
+    } for _ in range(c.n_layers)]
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))

@@ -1,0 +1,293 @@
+"""The port's dense-transformer serving path against the JAX package's.
+
+For the smoke configurations of the four dense architectures, the
+reference's ``init_params`` weights are carried into the port through
+``interop.lm_params_from_state``, and both packages run on them: layers,
+``forward``, teacher-forced ``decode_step`` (both fed the same tokens, so an
+argmax flip cannot cascade), ``prefill_fn`` and greedy decoding.  f32 is
+held to 2e-3 and bf16 to 5e-2, the tolerances of ``tests/test_kernels.py``.
+All of it runs on the CPU, where attention is the plain version.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs import smoke_config as ref_smoke_config
+from repro.launch.serve import greedy_generate as ref_greedy_generate
+from repro.models import layers as ref_layers
+from repro.models.common import init_params as ref_init_params
+from repro.models.common import param_bytes as ref_param_bytes
+from repro.models.lm import decode_step as ref_decode_step
+from repro.models.lm import forward as ref_forward
+from repro.models.lm import init_cache as ref_init_cache
+from repro.models.lm import layer_windows as ref_layer_windows
+from repro.serve.serve_step import prefill_fn as ref_prefill_fn
+from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.interop import lm_params_from_state
+from repro_torch.launch.serve import greedy_generate, main
+from repro_torch.models import layers
+from repro_torch.models.common import ModelConfig, init_params, param_bytes
+from repro_torch.models.lm import (decode_step, forward, init_cache,
+                                   layer_windows)
+from repro_torch.serve.serve_step import decode_fn, prefill_fn
+
+ARCH_NAMES = ["qwen3-8b", "h2o-danube-1.8b", "h2o-danube-3-4b", "gemma3-27b"]
+#: name -> (jax dtype, torch dtype, tolerance)
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-3),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+def _jax(a, dtype):
+    return jnp.asarray(np.asarray(a, np.float32)).astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch, dt, seed=0):
+    """(reference cfg, reference params, port cfg, port params) on the same
+    weights."""
+    jdt, tdt, _ = DTYPES[dt]
+    rcfg = ref_smoke_config(arch).scaled(dtype=jdt)
+    pcfg = smoke_config(arch).scaled(dtype=tdt)
+    rparams = ref_init_params(jax.random.PRNGKey(seed), rcfg)
+    pparams = lm_params_from_state(jax.tree.map(np.asarray, rparams), pcfg,
+                                   "cpu")
+    return rcfg, rparams, pcfg, pparams
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)) \
+        .astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# configurations and parameters
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_configs_match_the_reference(arch):
+    ref, port = ref_get_config(arch), get_config(arch)
+    for f in ModelConfig.__dataclass_fields__:
+        if f != "dtype":
+            assert getattr(port, f) == getattr(ref, f), f
+    assert port.dtype == torch.bfloat16
+    assert (port.kv_heads, port.hd) == (ref.kv_heads, ref.hd)
+    assert port.param_count() == ref.param_count()
+    assert layer_windows(port) == np.asarray(ref_layer_windows(ref)).tolist()
+    smoke, ref_smoke = smoke_config(arch), ref_smoke_config(arch)
+    for f in ModelConfig.__dataclass_fields__:
+        if f != "dtype":
+            assert getattr(smoke, f) == getattr(ref_smoke, f), f
+
+
+def test_registry_holds_the_dense_archs():
+    assert sorted(ARCHS) == sorted(ARCH_NAMES)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_init_params_shapes_scales_and_bytes(arch):
+    rcfg, rparams, pcfg, pparams = _models(arch, "bf16")
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(gen, pcfg, "cpu")
+    # the same tree, shapes and dtypes as the reference's, layer by layer
+    assert param_bytes(params) == param_bytes(pparams) == \
+        ref_param_bytes(rparams)
+    for a, b in ((params, pparams), (params["layers"][1], pparams["layers"][1])):
+        assert a.keys() == b.keys()
+    for name in ("attn", "mlp"):
+        for w, t in params["layers"][0][name].items():
+            ref = pparams["layers"][0][name][w]
+            assert t.shape == ref.shape and t.dtype == ref.dtype, w
+    d = pcfg.d_model
+    assert abs(params["embed"].float().std().item() - 0.02) < 0.002
+    wq = params["layers"][0]["attn"]["wq"].float()
+    assert abs(wq.std().item() * d ** 0.5 - 1.0) < 0.1
+    assert torch.equal(params["final_norm"], torch.ones(d, dtype=pcfg.dtype))
+    again = init_params(torch.Generator().manual_seed(0), pcfg, "cpu")
+    assert torch.equal(again["layers"][1]["mlp"]["w_down"],
+                       params["layers"][1]["mlp"]["w_down"])
+
+
+@pytest.mark.parametrize("family", ["moe", "rwkv6", "zamba2", "hubert",
+                                    "paligemma"])
+def test_unported_families_name_their_roadmap_item(family):
+    cfg = ModelConfig(name="x", family=family, n_layers=1, d_model=8,
+                      n_heads=2, d_ff=8, vocab=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_params(torch.Generator(), cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_cache(cfg, 1, 4, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_rms_norm_rope_mlp_match(dt):
+    jdt, tdt, tol = DTYPES[dt]
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 6, 4, 16), np.float32)
+    scale = rng.standard_normal(16, np.float32) * 0.1
+    pos = np.arange(6)[None, :] + 3
+    xt = torch.from_numpy(x).to(tdt)
+    _close(_np(layers.rms_norm(xt, torch.from_numpy(scale).to(tdt))),
+           ref_layers.rms_norm(_jax(x, jdt), _jax(scale, jdt)), tol)
+    _close(_np(layers.rope(xt, torch.from_numpy(pos), 1e6)),
+           ref_layers.rope(_jax(x, jdt), jnp.asarray(pos), 1e6), tol)
+    h = rng.standard_normal((2, 6, 16), np.float32)
+    w = {n: rng.standard_normal(s, np.float32) * 0.25 for n, s in
+         (("w_up", (16, 32)), ("w_gate", (16, 32)), ("w_down", (32, 16)))}
+    for act in ("silu", "gelu"):
+        got = layers.mlp(torch.from_numpy(h).to(tdt),
+                         {n: torch.from_numpy(a).to(tdt) for n, a in w.items()},
+                         act)
+        want = ref_layers.mlp(_jax(h, jdt), {n: _jax(a, jdt)
+                                             for n, a in w.items()}, None, act)
+        _close(_np(got), want, tol)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("causal,window,prefix_len,q_offset,block_kv", [
+    (True, layers.GLOBAL_WINDOW, None, 0, 16),
+    (True, 8, None, 0, 16),
+    (False, layers.GLOBAL_WINDOW, None, 0, 512),
+    (True, layers.GLOBAL_WINDOW, 5, 0, 7),
+    (True, layers.GLOBAL_WINDOW, None, 12, 16),
+])
+def test_blockwise_attention_matches(dt, causal, window, prefix_len, q_offset,
+                                     block_kv):
+    jdt, tdt, tol = DTYPES[dt]
+    rng = np.random.default_rng(2)
+    Sq = 20 if q_offset == 0 else 8
+    q = rng.standard_normal((2, Sq, 4, 16), np.float32)
+    k = rng.standard_normal((2, 20, 2, 16), np.float32)
+    v = rng.standard_normal((2, 20, 2, 16), np.float32)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len,
+              q_offset=q_offset, block_kv=block_kv)
+    got = layers.blockwise_attention(*(torch.from_numpy(a).to(tdt)
+                                       for a in (q, k, v)), **kw)
+    want = ref_layers.blockwise_attention(*(_jax(a, jdt) for a in (q, k, v)),
+                                          **kw)
+    assert got.dtype == tdt
+    _close(_np(got), want, tol)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("window", [layers.GLOBAL_WINDOW, 4])
+@pytest.mark.parametrize("cache_len", [9, (9, 5)], ids=["shared", "per-row"])
+def test_decode_attention_matches(dt, window, cache_len):
+    jdt, tdt, tol = DTYPES[dt]
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 1, 4, 16), np.float32)
+    kc = rng.standard_normal((2, 12, 2, 16), np.float32)
+    vc = rng.standard_normal((2, 12, 2, 16), np.float32)
+    clen = torch.tensor(cache_len) if isinstance(cache_len, tuple) else cache_len
+    got = layers.decode_attention(*(torch.from_numpy(a).to(tdt)
+                                    for a in (q, kc, vc)), clen, window=window)
+    want = ref_layers.decode_attention(*(_jax(a, jdt) for a in (q, kc, vc)),
+                                       jnp.asarray(cache_len, jnp.int32),
+                                       window=window)
+    _close(_np(got), want, tol)
+
+
+# ---------------------------------------------------------------------------
+# the model and the serving steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_forward_matches(arch, dt):
+    rcfg, rparams, pcfg, pparams = _models(arch, dt)
+    tokens = _tokens(pcfg, 2, 16)
+    got, aux = forward(pparams, pcfg, torch.from_numpy(tokens))
+    want, raux = jax.jit(ref_forward, static_argnums=1)(
+        rparams, rcfg, jnp.asarray(tokens))
+    assert got.shape == (2, 16, pcfg.vocab) and got.dtype == pcfg.dtype
+    _close(_np(got), want, DTYPES[dt][2])
+    assert float(aux) == float(raux) == 0.0
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_teacher_forced_decode_matches(arch, dt):
+    rcfg, rparams, pcfg, pparams = _models(arch, dt)
+    B, S = 2, 10
+    tokens = _tokens(pcfg, B, S, seed=1)
+    cache = init_cache(pcfg, B, max_len=S + 2, device="cpu")
+    rcache = ref_init_cache(rcfg, B, max_len=S + 2)
+    rstep = jax.jit(ref_decode_step, static_argnums=1)
+    for t in range(S):
+        got, cache = decode_step(pparams, pcfg, cache,
+                                 torch.from_numpy(tokens[:, t:t + 1]))
+        want, rcache = rstep(rparams, rcfg, rcache,
+                             jnp.asarray(tokens[:, t:t + 1]))
+        assert got.shape == (B, 1, pcfg.vocab)
+        _close(_np(got), want, DTYPES[dt][2])
+    assert cache["len"] == S == int(rcache["len"])
+    _close(_np(cache["k"]), rcache["k"], DTYPES[dt][2])
+    with pytest.raises(ValueError, match="does not fit"):
+        for _ in range(3):
+            decode_step(pparams, pcfg, cache,
+                        torch.zeros((B, 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_prefill_fn_matches(arch, dt):
+    rcfg, rparams, pcfg, pparams = _models(arch, dt)
+    tokens = _tokens(pcfg, 3, 12, seed=2)
+    got = prefill_fn(pcfg)(pparams, {"tokens": torch.from_numpy(tokens)})
+    want = jax.jit(ref_prefill_fn(rcfg))(rparams,
+                                         {"tokens": jnp.asarray(tokens)})
+    assert got.shape == (3, pcfg.vocab)
+    _close(_np(got), want, DTYPES[dt][2])
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_greedy_generate_matches_in_f32(arch):
+    rcfg, rparams, pcfg, pparams = _models(arch, "f32")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, pcfg.vocab, n).astype(np.int32)
+               for n in (3, 7, 5)]
+    got = greedy_generate(pparams, pcfg, prompts, max_new=6, max_len=16)
+    want = ref_greedy_generate(rparams, rcfg, prompts, max_new=6, max_len=16)
+    assert got.dtype == np.int32 and got.shape == (3, 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_decode_fn_returns_the_argmax():
+    _, _, pcfg, pparams = _models("qwen3-8b", "f32")
+    cache = init_cache(pcfg, 2, 4, device="cpu")
+    tok, logits, cache = decode_fn(pcfg)(pparams, cache,
+                                         torch.tensor([[1], [2]]))
+    assert tok.dtype == torch.int32 and tok.shape == (2, 1)
+    assert torch.equal(tok[:, 0].long(), logits[:, -1].argmax(-1))
+    assert cache["len"] == 1
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_serve_main_on_cpu(arch, capsys):
+    out = main(["--arch", arch, "--smoke", "--device", "cpu",
+                "--requests", "3", "--max-new", "5"])
+    toks = out["tokens"]
+    assert toks.shape == (3, 5) and toks.dtype == np.int32
+    assert ((toks >= 0) & (toks < smoke_config(arch).vocab)).all()
+    assert out["tok_s"] > 0
+    assert f"arch={arch}" in capsys.readouterr().out
