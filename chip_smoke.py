@@ -7,14 +7,16 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 It builds the hand-written kernels from the checkout's sources (one nvcc
 each, side by side), holds each against its plain PyTorch version on the
-card, drives the port's two paths through the user's entry points and
-times the kernels.  The execution path: ``ual.compile`` ->
+card, drives the port's paths through the user's entry points and times
+the kernels.  The execution path: ``ual.compile`` ->
 ``Executable.validate`` / ``run_batch`` on the ``cuda`` backend at the sizes
 the paper's users run (the benchmark kernels on HyCUBE 4x4 and PACE 8x8, an
-8192-word scratchpad, batches of 4096 test vectors).  The serving path:
-qwen3-8b at its published widths (36 layers, random weights from the seed)
-through ``prefill_fn`` and ``greedy_generate``.  Each phase prints one JSON
-line:
+8192-word scratchpad, batches of 4096 test vectors).  The serving paths:
+qwen3-8b (36 layers) and zamba2-2.7b (54 Mamba-2 layers and 9 applications
+of the shared attention block) at their published widths, random weights
+from the seed (zamba2's per-head decay from Mamba-2's initial ranges), through
+``prefill_fn`` and ``greedy_generate``.  Each phase
+prints one JSON line:
 
   device           the card's name and power limit (``nvidia-smi``), versions
   build            per kernel: build time and ptxas resource lines
@@ -31,13 +33,20 @@ line:
                    2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want| in bf16),
                    a planted fault (one KV tile dropped) that the bound
                    must catch, kernel, plain and SDPA ms, the bound
-  lm_prefill       36 layers in bf16, B = 2 x 2048 tokens: wall ms, kernel
+  ssd              per case: the Mamba-2 SSD kernel vs its plain version
+                   (the same per-element bounds) on steps whose state
+                   carries across chunks, two planted faults (the state
+                   dropped at one chunk boundary; the carried state's decay
+                   left out of every update) that the bound must catch,
+                   kernel and plain ms, the bound
+  lm_prefill       per model, in bf16, B = 2 x 2048 tokens: wall ms, kernel
                    launches, peak memory; the kernel path vs the plain
                    path in f32 (checked) and in bf16, each vs the f32 model
                    (printed)
-  lm_serve         greedy_generate, 4 requests x 16 new tokens: tok/s, ms
-                   per decode step, decode path vs prefill (checked in f32)
-  lm_breakdown     prefill and decode under torch.profiler
+  lm_serve         per model, greedy_generate, 4 requests x 16 new tokens:
+                   tok/s, ms per decode step, decode path vs prefill
+                   (checked in f32)
+  lm_breakdown     per model, prefill and decode under torch.profiler
   kernels          the summary line of every kernel
 
 The raw ``nvidia-smi`` line comes next, and the last line is
@@ -77,7 +86,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: (name, B, S, H, KV, D, dtype, causal, window) of the flash-attention
 #: phase: qwen3-8b's attention at B = 1 and at the main path's B = 2 (in
 #: bf16 and f32), danube-1.8b's width and 4096-token window at S = 8192, an
-#: encoder's full attention, a ragged length, and f32 at D = 64
+#: encoder's full attention, a ragged length, f32 at D = 64, and zamba2's
+#: shared attention (MHA, D = 80) at its prefill shape
 FLASH_CASES = [
     ("qwen3-8b", 1, 2048, 32, 8, 128, "bfloat16", True, 0),
     ("qwen3-8b-prefill", 2, 2048, 32, 8, 128, "bfloat16", True, 0),
@@ -86,23 +96,41 @@ FLASH_CASES = [
     ("non-causal", 1, 1024, 32, 8, 128, "bfloat16", False, 0),
     ("ragged", 1, 200, 32, 8, 128, "bfloat16", True, 0),
     ("f32-d64", 2, 512, 8, 2, 64, "float32", True, 0),
+    ("zamba2-prefill", 2, 2048, 32, 32, 80, "bfloat16", True, 0),
 ]
-#: the kernel against its plain version, per element |got - want| <= atol
-#: + rtol * |want|.  f32: the reference's 2e-3 (tests/test_kernels.py).
-#: bf16: both round f32 values that agree to about 1e-6, so they differ by
-#: at most one bf16 ulp, 2^-7 |want| < 1e-2 |want|
-FLASH_TOL = {"bfloat16": (2e-3, 1e-2), "float32": (2e-3, 2e-3)}
+#: a float kernel (flash_attention, mamba2_ssd) against its plain version,
+#: per element |got - want| <= atol + rtol * |want|.  f32: the reference's
+#: 2e-3 (tests/test_kernels.py).  bf16: both round f32 values that agree to
+#: about 1e-6 once, so they differ by at most one bf16 ulp, 2^-7 |want| <
+#: 1e-2 |want|
+KERNEL_TOL = {"bfloat16": (2e-3, 1e-2), "float32": (2e-3, 2e-3)}
 #: the planted fault each case must be caught at: the kernel's last block of
 #: FAULT_ROWS query rows skips the first tile of FAULT_TILE keys it sees
 FAULT_ROWS, FAULT_TILE = 64, 32
-#: the serving phases: qwen3-8b at full width, B = 2 prompts of 2048 tokens,
-#: 4 requests x 16 new tokens
-LM_ARCH, PREFILL_B, PREFILL_S = "qwen3-8b", 2, 2048
+#: (name, B, S, H, P, N, dtype, decay) of the SSD phase: zamba2's prefill
+#: (B = 2, S = 2048, 80 heads of 64, state 64) in bf16 and f32, at B = 1, at
+#: a ragged length, a small shape with P != N, and the prefill shape with
+#: every head in Mamba-2's slow-decay ranges (``ssd_inputs``)
+SSD_CASES = [
+    ("zamba2-prefill", 2, 2048, 80, 64, 64, "bfloat16", "mixed"),
+    ("zamba2-B1", 1, 2048, 80, 64, 64, "bfloat16", "mixed"),
+    ("zamba2-prefill-f32", 2, 2048, 80, 64, 64, "float32", "mixed"),
+    ("ragged", 2, 2000, 80, 64, 64, "bfloat16", "mixed"),
+    ("small-p32-n16", 3, 200, 8, 32, 16, "float32", "mixed"),
+    ("zamba2-slow-decay", 2, 2048, 80, 64, 64, "bfloat16", "slow"),
+]
+#: Mamba-2's initial ranges (state-spaces/mamba, ``Mamba2``: A_init_range,
+#: dt_min, dt_max): A in [1, 16], dt log-uniform in [1e-3, 1e-1]
+A_RANGE, DT_RANGE = (1.0, 16.0), (1e-3, 1e-1)
+#: the serving phases: each model at full width, B = 2 prompts of 2048
+#: tokens, 4 requests x 16 new tokens
+LM_ARCHS, PREFILL_B, PREFILL_S = ("qwen3-8b", "zamba2-2.7b"), 2, 2048
 SERVE_REQUESTS, SERVE_NEW = 4, 16
-#: the serving profiles' kernel groups: the attention kernel, and cuBLAS's
+#: the serving profiles' kernel groups: the two kernels, and cuBLAS's
 #: matrix products (its Hopper kernels are named nvjet / sm90_xmma)
 LM_GROUPS = {
     "attn_kernel_ms": lambda n: "attn_kernel" in n,
+    "ssd_kernel_ms": lambda n: "ssd_kernel" in n,
     "gemm_ms": lambda n: ("gemm" in n or "cutlass" in n or "nvjet" in n
                           or "sm90_xmma" in n),
 }
@@ -217,15 +245,17 @@ def build_all() -> None:
 
     from repro_torch.kernels.cgra_exec import ops as cgra_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
 
     def timed(mod):
         t0 = time.perf_counter()
         lib = mod.build()
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        futs = {name: pool.submit(timed, mod) for name, mod in
-                (("cgra_exec", cgra_ops), ("flash_attention", fa_ops))}
+    kernels = (("cgra_exec", cgra_ops), ("flash_attention", fa_ops),
+               ("mamba2_ssd", ssd_ops))
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        futs = {name: pool.submit(timed, mod) for name, mod in kernels}
         for name, fut in futs.items():
             lib, seconds = fut.result()
             ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
@@ -415,11 +445,43 @@ def sdpa(q, k, v, causal, window):
 
 def excess(got, want, dt: str) -> float:
     """The largest amount by which ``got`` lies outside the bound of
-    ``FLASH_TOL[dt]`` around ``want`` (<= 0: within it everywhere)."""
-    atol, rtol = FLASH_TOL[dt]
+    ``KERNEL_TOL[dt]`` around ``want`` (<= 0: within it everywhere)."""
+    atol, rtol = KERNEL_TOL[dt]
     want = want.float()
     return float(((got.float() - want).abs()
                   - (atol + rtol * want.abs())).max())
+
+
+def check_case(phase: str, name: str, dt: str, run_kernel, run_plain,
+               faults) -> dict:
+    """One case of a float kernel's phase: the kernel's output against its
+    plain version within ``KERNEL_TOL[dt]`` per element, each planted fault
+    held to the same bound (it must fail it), and both versions timed.
+    ``faults`` maps a fault's name to a function that returns its output
+    and the first step (axis 1) it covers.  Returns the row's numbers."""
+    import torch
+    got, want = run_kernel(), run_plain()
+    torch.cuda.synchronize()
+    atol, rtol = KERNEL_TOL[dt]
+    err = float((got.float() - want.float()).abs().max())
+    over = excess(got, want, dt)
+    check(bool(torch.isfinite(got).all()), f"{phase} {name}: non-finite")
+    check(over <= 0, f"{phase} {name}: max |err| {err} beyond {atol} + "
+                     f"{rtol} |want| (by {over})")
+    row = {"max_abs_err": err, "atol": atol, "rtol": rtol, "excess": over}
+    for fault_name, run_fault in faults.items():
+        fault, at = run_fault()
+        fault_err = float((fault.float() - want[:, at:].float()).abs().max())
+        fault_over = excess(fault, want[:, at:], dt)
+        check(fault_over > 0, f"{phase} {name}: the bound {atol} + {rtol} "
+                              f"|want| lets the fault {fault_name} through "
+                              f"(max |err| {fault_err})")
+        row[f"{fault_name}_max_abs_err"] = fault_err
+        row[f"{fault_name}_excess"] = fault_over
+    del got, want
+    row["ms"], row["host_ms"] = time_ms(run_kernel, reps=10, warmup=2)
+    row["plain_ms"], _ = time_ms(run_plain, reps=2)
+    return row
 
 
 def dropped_tile(q, k, v, causal: bool, window: int):
@@ -465,40 +527,25 @@ def flash_phases(dev) -> dict:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
-        got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        want = flash_attention_torch(q, k, v, causal=causal, window=window)
-        fault = dropped_tile(q, k, v, causal, window)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        over = excess(got, want, dt)
-        fault_err = float((fault.float() - want[:, -FAULT_ROWS:].float())
-                          .abs().max())
-        fault_over = excess(fault, want[:, -FAULT_ROWS:], dt)
-        atol, rtol = FLASH_TOL[dt]
-        check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite")
-        check(over <= 0, f"flash {name}: max |err| {err} beyond {atol} "
-                         f"+ {rtol} |want| (by {over})")
-        check(fault_over > 0, f"flash {name}: the bound {atol} + {rtol} "
-                              f"|want| lets a dropped KV tile through "
-                              f"(max |err| {fault_err})")
-        max_err = max(max_err, err)
-        ms, host_ms = time_ms(lambda: ops.flash_attention(
-            q, k, v, causal=causal, window=window), reps=10, warmup=2)
-        plain_ms, _ = time_ms(lambda: flash_attention_torch(
-            q, k, v, causal=causal, window=window), reps=2)
+        res = check_case(
+            "flash", name, dt,
+            lambda: ops.flash_attention(q, k, v, causal=causal,
+                                        window=window),
+            lambda: flash_attention_torch(q, k, v, causal=causal,
+                                          window=window),
+            {"dropped_tile": lambda: (dropped_tile(q, k, v, causal, window),
+                                      S - FAULT_ROWS)})
+        max_err = max(max_err, res["max_abs_err"])
         lib_ms, _ = time_ms(lambda: sdpa(q, k, v, causal, window), reps=10,
                             warmup=2)
         b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, KV, D, dt,
                                                     causal, window)
         rows[name] = row = {
             "case": name, "B": B, "S": S, "H": H, "KV": KV, "D": D,
-            "dtype": dt, "causal": causal, "window": window,
-            "max_abs_err": err, "atol": atol, "rtol": rtol,
-            "excess": over, "fault_max_abs_err": fault_err,
-            "fault_excess": fault_over, "ms": ms, "host_ms": host_ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "flops": flops, "bytes": nbytes,
-            "tflop_s": flops / ms / 1e9}
+            "dtype": dt, "causal": causal, "window": window, **res,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "flops": flops, "bytes": nbytes,
+            "tflop_s": flops / res["ms"] / 1e9}
         emit("flash_attention", **row)
     lead = rows["qwen3-8b-prefill"]
     return {
@@ -512,6 +559,146 @@ def flash_phases(dev) -> dict:
         "library_ms": lead["library_ms"],
         "shape": "qwen3-8b prefill attention: B=2, S=2048, H=32, KV=8, "
                  "D=128, bf16, causal"}
+
+
+def ssd_bound(B, S, H, P, N, dtype):
+    """Least time for one SSD call: per chunk of l steps, C B^T over the
+    l (l + 1) / 2 causal pairs once per batch row (B and C are shared by
+    the heads), and per head C S^T, W x over the causal pairs, and the
+    state update, at 2 flops a multiply-add over the peak rate of
+    ``dtype``; against x, dt, B, C, A_log, D read once and y written once
+    over HBM's rate.  Also the flops the kernel issues (four full L^3
+    products per (batch, head, chunk))."""
+    from repro_torch.kernels.mamba2_ssd.ops import CHUNK
+    item = 2 if dtype == "bfloat16" else 4
+    lens = [min(CHUNK, S - s0) for s0 in range(0, S, CHUNK)]
+    flops = sum(B * (2 * N * ln * (ln + 1) // 2
+                     + H * (2 * ln * P * N + 2 * P * ln * (ln + 1) // 2
+                            + 2 * ln * P * N)) for ln in lens)
+    L = CHUNK
+    kernel_flops = len(lens) * B * H * 2 * (L * L * N + 2 * L * P * N
+                                            + L * L * P)
+    nbytes = (2 * item * B * S * H * P + 4 * B * S * H + 2 * item * B * S * N
+              + 2 * 4 * H)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops,
+            kernel_flops, nbytes)
+
+
+def mamba2_decay(gen, H: int, *dt_shape):
+    """A (H,) and dt ``dt_shape`` from Mamba-2's initial ranges: dt
+    log-uniform in DT_RANGE, A uniform over A_RANGE stratified by head (one
+    draw in each of H equal strata), so that even a few heads include one
+    with A near 1, whose state carries across chunks."""
+    import torch
+    A = A_RANGE[0] + (A_RANGE[1] - A_RANGE[0]) * (
+        torch.arange(H, device=gen.device)
+        + torch.rand((H,), generator=gen, device=gen.device)) / H
+    lo, hi = map(math.log, DT_RANGE)
+    dt = torch.exp(lo + (hi - lo) * torch.rand(dt_shape, generator=gen,
+                                               device=gen.device))
+    return A, dt
+
+
+def ssd_inputs(gen, B, S, H, P, N, dtype, decay: str):
+    """x, dt, A_log, B, C, D of one SSD case: x, B, C normal in ``dtype``,
+    D normal, A = exp(A_log) and dt from Mamba-2's initial ranges
+    (``mamba2_decay``), where a head's state decays by exp(-dt A) a step
+    and with A near 1 carries across chunks.  With ``decay="mixed"`` the odd heads
+    take dt = softplus(normal), the steps of the random-weight model, whose
+    state dies within a chunk and whose exponents above the diagonal
+    overflow unless guarded."""
+    import torch
+    import torch.nn.functional as F
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = randn(B, S, H, P).to(dtype)
+    Bm, Cm = randn(B, S, N).to(dtype), randn(B, S, N).to(dtype)
+    A, dt = mamba2_decay(gen, H, B, S, H)
+    if decay == "mixed":
+        dt[..., 1::2] = F.softplus(randn(B, S, H)[..., 1::2])
+    return x, dt, torch.log(A), Bm, Cm, randn(H)
+
+
+def dropped_state(x, dt, A_log, B, C, D, at: int):
+    """What a faulty kernel returns from step ``at`` on (a chunk boundary)
+    if it drops the carried state there: the plain arithmetic restarted
+    from a zero state at ``at``."""
+    from repro_torch.kernels.mamba2_ssd.ops import CHUNK
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
+    return ssd_torch(x[:, at:], dt[:, at:], A_log, B[:, at:], C[:, at:], D,
+                     chunk=CHUNK)
+
+
+def undecayed_state(x, dt, A_log, B, C, D):
+    """What a faulty kernel returns if its state update leaves out the
+    carried state's decay (S <- (x kdec)^T B in place of exp(cum_L) S +
+    (x kdec)^T B): each chunk then sees the state of the chunk before it
+    alone, so its output is the plain arithmetic over that pair of chunks
+    from a zero state."""
+    import torch
+
+    from repro_torch.kernels.mamba2_ssd.ops import CHUNK
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
+    S = x.shape[1]
+    outs = [ssd_torch(x[:, :CHUNK], dt[:, :CHUNK], A_log, B[:, :CHUNK],
+                      C[:, :CHUNK], D, chunk=CHUNK)]
+    for s0 in range(CHUNK, S, CHUNK):
+        w = slice(s0 - CHUNK, min(s0 + CHUNK, S))
+        outs.append(ssd_torch(x[:, w], dt[:, w], A_log, B[:, w], C[:, w], D,
+                              chunk=CHUNK)[:, CHUNK:])
+    return torch.cat(outs, dim=1)
+
+
+def ssd_phases(dev) -> dict:
+    """The Mamba-2 SSD kernel against its plain version on every case, with
+    the planted faults of ``dropped_state`` (at the middle chunk boundary)
+    and ``undecayed_state`` held to the same bound (each must fail it), the
+    kernel's time, the plain version's and the bound.  Returns the kernel's
+    summary entry, less the main path's launches."""
+    import torch
+
+    from repro_torch.kernels.mamba2_ssd import ops
+    from repro_torch.kernels.mamba2_ssd.ops import CHUNK
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {}
+    max_err = 0.0
+    for name, B, S, H, P, N, dt_name, decay in SSD_CASES:
+        args = ssd_inputs(gen, B, S, H, P, N, getattr(torch, dt_name), decay)
+        # the middle chunk boundary (every case has two chunks or more)
+        at = ((S - 1) // CHUNK + 1) // 2 * CHUNK
+        check(0 < at < S, f"ssd {name}: S = {S} has no chunk boundary")
+        res = check_case(
+            "ssd", name, dt_name, lambda: ops.ssd(*args),
+            lambda: ssd_torch(*args, chunk=CHUNK),
+            {"dropped_state": lambda: (dropped_state(*args, at=at), at),
+             "undecayed_state": lambda: (undecayed_state(*args), 0)})
+        max_err = max(max_err, res["max_abs_err"])
+        b_ms, b_by, flops, kflops, nbytes = ssd_bound(B, S, H, P, N, dt_name)
+        rows[name] = row = {
+            "case": name, "B": B, "S": S, "H": H, "P": P, "N": N,
+            "dtype": dt_name, "decay": decay, "fault_at": at, **res,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "flops": flops, "kernel_flops": kflops, "bytes": nbytes,
+            "tflop_s": kflops / res["ms"] / 1e9,
+            "gb_s": nbytes / res["ms"] / 1e6}
+        emit("ssd", **row)
+    lead = rows["zamba2-prefill"]
+    return {
+        "name": "mamba2_ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:25",
+        "launches": None, "max_abs_err": max_err,
+        "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+        "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+        "library_ms": None,
+        "shape": "zamba2-2.7b prefill SSD: B=2, S=2048, H=80, P=64, N=64, "
+                 "bf16 x/B/C, f32 dt"}
 
 
 def to_f32(tree):
@@ -538,28 +725,67 @@ def plain_attention():
         layers.flash_attention = kernel
 
 
+@contextlib.contextmanager
+def plain_ssd():
+    """Within the block, the model's SSD scan on the card is the kernel's
+    plain version (``ssd_torch``) in place of the kernel."""
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
+    from repro_torch.models import mamba2
+    kernel = mamba2.ssd
+    mamba2.ssd = ssd_torch
+    try:
+        yield
+    finally:
+        mamba2.ssd = kernel
+
+
+def mamba2_decay_init(layers, gen) -> None:
+    """Give every Mamba-2 layer Mamba-2's initial decay in place of the
+    reference's zeros: A_log = log A and dt_bias = softplus^-1(dt), with A
+    and dt per head from Mamba-2's initial ranges (``mamba2_decay``).
+    With zeros (A = 1, dt = softplus(about N(0, 1))) every head's state dies
+    within a chunk; with these it carries across chunks, as in a trained
+    model, so the kernel's carried state reaches the logits."""
+    import torch
+    for p in layers:
+        H = p["A_log"].shape[0]
+        A, dt = mamba2_decay(gen, H, H)
+        p["A_log"].copy_(torch.log(A))
+        p["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
 def rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm())
 
 
-def lm_phases(dev, seed: int) -> dict:
-    """qwen3-8b at full width: the main path (``prefill_fn`` on B = 2
-    prompts of 2048 tokens, ``greedy_generate`` for 4 requests), the kernel
-    path against the plain path and both against the f32 model (all 36
-    layers), the decode path against prefill, and profiles.  Returns the
-    main path's flash-attention launches."""
+def lm_phases(dev, seed: int, arch: str) -> dict:
+    """One model at full width: the main path (``prefill_fn`` on B = 2
+    prompts of 2048 tokens, ``greedy_generate`` for 4 requests) with the
+    launches of each kernel checked, the kernel path against the plain path
+    and both against the f32 model (all layers), the decode path against
+    prefill, and profiles.  Returns the main path's launches by kernel."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models.common import init_params, param_bytes
     from repro_torch.models.lm import forward, init_cache
     from repro_torch.serve.serve_step import decode_fn, prefill_fn
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    kernels = {"flash_attention": fa_ops, "mamba2_ssd": ssd_ops}
+    # launches a prefill must make: one attention per attention block, one
+    # SSD scan per Mamba-2 layer
+    if cfg.family == "zamba2":
+        per_prefill = {"flash_attention":
+                       cfg.n_layers // cfg.shared_attn_every,
+                       "mamba2_ssd": cfg.n_layers}
+    else:
+        per_prefill = {"flash_attention": cfg.n_layers, "mamba2_ssd": 0}
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S)).astype(np.int32)).to(dev)
@@ -570,19 +796,23 @@ def lm_phases(dev, seed: int) -> dict:
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
                          dev)
+    if cfg.family == "zamba2":
+        mamba2_decay_init(params["layers"],
+                          torch.Generator(device=dev).manual_seed(seed + 1))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prefill = prefill_fn(cfg)
     batch = {"tokens": tokens}
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
+    for mod in kernels.values():
+        mod.reset_launches()
     walls = []
     for _ in range(2):                       # cold, then warm
         t0 = time.perf_counter()
         last = prefill(params, batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    prefill_launches = ops.launches()
+    prefill_launches = {k: mod.launches() for k, mod in kernels.items()}
     peak_prefill = torch.cuda.max_memory_allocated()
     serve_walls, outs = [], []
     for _ in range(2):                       # cold, then warm
@@ -590,28 +820,29 @@ def lm_phases(dev, seed: int) -> dict:
         outs.append(greedy_generate(params, cfg, prompts, SERVE_NEW,
                                     max_len=64 + SERVE_NEW))
         serve_walls.append(time.perf_counter() - t0)
-    main_launches = ops.launches()
-    check(prefill_launches == 2 * cfg.n_layers,
-          f"prefill launched the kernel {prefill_launches} times, expected "
-          f"{cfg.n_layers} per prefill")
+    main_launches = {k: mod.launches() for k, mod in kernels.items()}
+    for k, n in per_prefill.items():
+        check(prefill_launches[k] == 2 * n,
+              f"{arch}: two prefills launched {k} {prefill_launches[k]} "
+              f"times, expected {n} per prefill")
     check(bool(torch.isfinite(last).all()), "prefill logits not finite")
     check(tuple(last.shape) == (PREFILL_B, cfg.vocab),
           f"prefill logits {tuple(last.shape)}")
 
-    # ---- all 36 layers: the kernel path against the plain path -----------
-    # checked in f32.  In bf16 a one-ulp difference in one attention output
+    # ---- all layers: the kernel path against the plain path --------------
+    # checked in f32.  In bf16 a one-ulp difference in one kernel output
     # grows layer by layer with these random weights, so any two bf16 paths
     # end 0.1-0.3 apart at the logits: the bf16 numbers are printed, not
-    # checked, and the kernel's bf16 arithmetic is held per call above
+    # checked, and the kernels' bf16 arithmetic is held per call above
     t0 = time.perf_counter()
-    with plain_attention():
+    with plain_attention(), plain_ssd():
         plain = forward(params, cfg, tokens)[0][:, -1]
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     cfg32 = cfg.scaled(dtype=torch.float32)
     params32 = to_f32(params)                 # the same weights, in f32
     kern32 = forward(params32, cfg32, tokens)[0][:, -1]
-    with plain_attention():
+    with plain_attention(), plain_ssd():
         plain32 = forward(params32, cfg32, tokens)[0][:, -1]
     err = {"kernel_vs_plain": rel_l2(last, plain),
            "kernel_vs_f32": rel_l2(last, plain32),
@@ -626,12 +857,12 @@ def lm_phases(dev, seed: int) -> dict:
          param_bytes=param_bytes(params), init_s=init_s,
          wall_ms_cold=walls[0], wall_ms=walls[1],
          tokens_per_s=PREFILL_B * PREFILL_S / walls[1] * 1e3,
-         plain_path_wall_ms=plain_ms, flash_launches=prefill_launches,
-         flash_launches_per_prefill=prefill_launches // 2,
+         plain_path_wall_ms=plain_ms, launches=prefill_launches,
+         launches_per_prefill={k: n // 2 for k, n in prefill_launches.items()},
          peak_memory_bytes=peak_prefill, rel_l2=err, top1_agreement=top1,
          tol_f32=2e-3)
     check(err["f32_kernel_vs_f32_plain"] <= 2e-3,
-          f"f32 36-layer prefill: kernel vs plain rel L2 "
+          f"{arch}: f32 {cfg.n_layers}-layer prefill: kernel vs plain rel L2 "
           f"{err['f32_kernel_vs_f32_plain']}")
     del plain, kern32, plain32
 
@@ -668,11 +899,13 @@ def lm_phases(dev, seed: int) -> dict:
          ms_per_decode_step=serve_walls[1] / steps * 1e3,
          prompt_len=int(p0.shape[1]), rel_l2=err, sample=toks[0].tolist())
     check(err["f32_decode_vs_f32_prefill"] <= 2e-3,
-          f"f32 decode vs prefill rel L2 {err['f32_decode_vs_f32_prefill']}")
+          f"{arch}: f32 decode vs prefill rel L2 "
+          f"{err['f32_decode_vs_f32_prefill']}")
 
     # ---- where the time goes --------------------------------------------------
-    emit("lm_breakdown", step="prefill", B=PREFILL_B, S=PREFILL_S,
-         **device_profile(lambda: prefill(params, batch), LM_GROUPS))
+    emit("lm_breakdown", arch=cfg.name, step="prefill", B=PREFILL_B,
+         S=PREFILL_S, **device_profile(lambda: prefill(params, batch),
+                                       LM_GROUPS))
     decode = decode_fn(cfg)
     cache = init_cache(cfg, SERVE_REQUESTS, 64, device=dev)
     tok = torch.zeros((SERVE_REQUESTS, 1), dtype=torch.int32, device=dev)
@@ -685,11 +918,13 @@ def lm_phases(dev, seed: int) -> dict:
             tok, _, cache = decode(params, cache, tok)
     # the host's time to enqueue a step against the card's time to run it
     step_ms, enqueue_ms = time_ms(four_steps, reps=2)
-    emit("lm_breakdown", step="decode x4", B=SERVE_REQUESTS,
+    emit("lm_breakdown", arch=cfg.name, step="decode x4", B=SERVE_REQUESTS,
          cache_len=cache["len"], device_ms_per_step=step_ms / 4,
          host_enqueue_ms_per_step=enqueue_ms / 4,
          **device_profile(four_steps, LM_GROUPS))
-    return {"launches": main_launches}
+    del params, cache
+    torch.cuda.empty_cache()
+    return main_launches
 
 
 def main(argv=None) -> int:
@@ -724,12 +959,19 @@ def main(argv=None) -> int:
     build_all()
     cgra = cgra_phases(dev, np.random.default_rng(args.seed))
     flash = flash_phases(dev)
-    flash["launches"] = lm_phases(dev, args.seed)["launches"]
-    check(flash["launches"] > 0, "the serving path never launched "
-                                 "flash_attention")
+    ssd = ssd_phases(dev)
+    launches = {"flash_attention": 0, "mamba2_ssd": 0}
+    for arch in LM_ARCHS:
+        for k, n in lm_phases(dev, args.seed, arch).items():
+            launches[k] += n
+    flash["launches"] = launches["flash_attention"]
+    ssd["launches"] = launches["mamba2_ssd"]
+    for entry in (flash, ssd):
+        check(entry["launches"] > 0, f"the serving path never launched "
+                                     f"{entry['name']}")
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port imported jax or the JAX package")
-    print(json.dumps({"kernels": [cgra, flash]}), flush=True)
+    print(json.dumps({"kernels": [cgra, flash, ssd]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

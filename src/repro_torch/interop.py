@@ -112,20 +112,33 @@ def lm_params_from_state(state: Dict[str, object], cfg: ModelConfig,
     """The port's parameters from a reference parameter tree as numpy
     arrays (per-layer weights stacked on a leading ``(L, ...)`` axis, as the
     reference's ``init_params`` makes them), on ``device``, each in its own
-    dtype."""
+    dtype.  dense: ``attn``, ``mlp``, ``norm1``, ``norm2`` stacked ``(L,
+    ...)``.  zamba2: ``mamba`` stacked ``(L, ...)``, and ``shared_attn``,
+    ``shared_mlp``, ``shared_norm1``, ``shared_norm2`` stacked ``(1, ...)``,
+    which become ``params["shared"]``."""
     check_family(cfg)
     L = cfg.n_layers
-    for name in ("norm1", "norm2"):
-        if np.shape(state[name])[0] != L:
-            raise ValueError(f"{name} stacks {np.shape(state[name])[0]} "
-                             f"layers, the config has {L}")
+
+    def layer(tree, i):
+        """Entry ``i`` of every stacked array of ``tree``."""
+        if isinstance(tree, dict):
+            return {n: layer(w, i) for n, w in tree.items()}
+        return _tensor(tree[i], device)
+
+    stacked = (state["mamba"]["w_in"] if cfg.family == "zamba2"
+               else state["norm1"])
+    if np.shape(stacked)[0] != L:
+        raise ValueError(f"the state stacks {np.shape(stacked)[0]} layers, "
+                         f"the config has {L}")
     params: Dict[str, object] = {
         name: _tensor(state[name], device)
         for name in ("embed", "final_norm", "lm_head") if name in state}
-    params["layers"] = [{
-        "attn": {n: _tensor(w[i], device) for n, w in state["attn"].items()},
-        "mlp": {n: _tensor(w[i], device) for n, w in state["mlp"].items()},
-        "norm1": _tensor(state["norm1"][i], device),
-        "norm2": _tensor(state["norm2"][i], device),
-    } for i in range(L)]
+    if cfg.family == "zamba2":
+        params["layers"] = [layer(state["mamba"], i) for i in range(L)]
+        params["shared"] = {n: layer(state[f"shared_{n}"], 0)
+                            for n in ("attn", "mlp", "norm1", "norm2")}
+        return params
+    params["layers"] = [{n: layer(state[n], i)
+                         for n in ("attn", "mlp", "norm1", "norm2")}
+                        for i in range(L)]
     return params

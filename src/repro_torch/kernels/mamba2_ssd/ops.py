@@ -1,0 +1,127 @@
+"""Public wrapper of the hand-written Mamba-2 SSD kernel.
+
+``ssd(x, dt, A_log, B, C, D)`` launches the kernel (``csrc/mamba2_ssd.cu``)
+when the tensors lie on a CUDA device and raises if it cannot; only CPU
+tensors go to the plain PyTorch version (``ref.ssd_torch``).  Every launch
+adds one to the module's launch count (``launches()``), so a run can show
+that it went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
+
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "mamba2_ssd.cu",)
+#: the dtypes of x, B, C and y the kernel takes, by the code its C entry
+#: point reads (dt, A_log and D are handed over in f32)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's chunk length (fixed in csrc/mamba2_ssd.cu) and its widest
+#: head (P) and state (N)
+CHUNK = 64
+MAX_WIDTH = 64
+
+_launches = 0
+_count_lock = threading.Lock()
+
+
+def launches() -> int:
+    """Kernel launches since the last ``reset_launches`` (CUDA only)."""
+    with _count_lock:
+        return _launches
+
+
+def reset_launches() -> None:
+    global _launches
+    with _count_lock:
+        _launches = 0
+
+
+def build() -> Path:
+    """Build the kernel library (no-op when it exists); returns its path."""
+    return _build.build("mamba2_ssd", SOURCES, {})
+
+
+@functools.cache
+def _launcher():
+    """The library's C entry point, built and loaded once per process."""
+    fn = _build.load("mamba2_ssd", SOURCES, {}).mamba2_ssd_launch
+    # x, dt, A_log, B, C, D, y; dtype, B, S, H, P, N; strides; stream
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, dt, A_log, B, C, D):
+    for name, t in (("x", x), ("dt", dt), ("A_log", A_log), ("B", B),
+                    ("C", C), ("D", D)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.device != x.device:
+            raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
+    Bsz, S, H, P = x.shape
+    N = B.shape[-1] if B.dim() == 3 else -1
+    want = {"dt": (Bsz, S, H), "A_log": (H,), "B": (Bsz, S, N),
+            "C": (Bsz, S, N), "D": (H,)}
+    for name, t in (("dt", dt), ("A_log", A_log), ("B", B), ("C", C),
+                    ("D", D)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{want[name]} for x {tuple(x.shape)}")
+    if min(Bsz, S, H, P, N) < 1:
+        raise ValueError(f"empty shape: x {tuple(x.shape)}, B "
+                         f"{tuple(B.shape)}")
+    return Bsz, S, H, P, N
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+        B: torch.Tensor, C: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """Chunked SSD over chunks of ``CHUNK`` steps.  x: (B, S, H, P); dt:
+    (B, S, H); B/C: (B, S, N), one group shared by all heads; A_log/D:
+    (H,).  Returns y: (B, S, H, P) in x's dtype, with the D * x skip added
+    in f32 and rounded once.
+
+    On CUDA tensors this launches the kernel on the current stream, without
+    synchronising, or raises: x, B and C share one dtype of f32 or bf16,
+    their last axis is contiguous (other strides are read as they are),
+    and P and N are at most 64.  CPU tensors run the plain version."""
+    global _launches
+    Bsz, S, H, P, N = _check(x, dt, A_log, B, C, D)
+    if x.device.type == "cpu":
+        return ssd_torch(x, dt, A_log, B, C, D, chunk=CHUNK)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
+    if x.dtype not in DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"x, B, C must share one dtype of "
+                         f"{sorted(map(str, DTYPES))}, got {x.dtype}, "
+                         f"{B.dtype}, {C.dtype}")
+    if max(P, N) > MAX_WIDTH:
+        raise ValueError(f"P = {P} and N = {N} must be at most {MAX_WIDTH}")
+    if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
+        raise ValueError("x, B and C need a contiguous last axis")
+    dt, A_log, D = dt.float(), A_log.float().contiguous(), \
+        D.float().contiguous()
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    strides = (ctypes.c_longlong * 10)(
+        *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2])
+    fn = _launcher()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(),
+                 B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
+                 DTYPES[x.dtype], Bsz, S, H, P, N, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba2_ssd launch failed: CUDA error {err}")
+    with _count_lock:
+        _launches += 1
+    return y

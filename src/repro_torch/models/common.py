@@ -6,10 +6,18 @@ architectures describe themselves the same way in both packages; ``dtype``
 is a ``torch.dtype``.  Parameters are plain nested dicts of tensors.  Where
 the reference stacks per-layer weights on a leading axis for ``lax.scan``,
 the port keeps one dict per layer in ``params["layers"]`` and loops over
-them in Python.
+them in Python.  The layout, besides ``embed``, ``final_norm`` (and
+``lm_head`` when untied):
 
-Only the dense family is ported; the others raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+  dense   ``layers[i]`` = {``attn``, ``mlp``, ``norm1``, ``norm2``}
+  zamba2  ``layers[i]`` = one Mamba-2 mixer {``w_in``, ``conv_w``, ``A_log``,
+          ``D``, ``dt_bias``, ``w_out``, ``norm``, ``gate_norm``};
+          ``shared`` = the one attention + MLP block applied after every
+          ``shared_attn_every`` layers, {``attn``, ``mlp``, ``norm1``,
+          ``norm2``} (the reference's ``shared_*`` entries, unstacked)
+
+The dense and zamba2 families are ported; the others raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -24,15 +32,14 @@ import torch
 UNPORTED_FAMILIES = {
     "moe": "ROADMAP A9 (models/moe)",
     "rwkv6": "ROADMAP B4 and A9 (models/rwkv6 with the rwkv6 kernel)",
-    "zamba2": "ROADMAP B3 and A9 (models/mamba2 with the mamba2_ssd kernel)",
     "hubert": "ROADMAP A9 (the audio front end)",
     "paligemma": "ROADMAP A9 (the image front end, prefix-LM attention)",
 }
 
 
 def check_family(cfg: "ModelConfig") -> None:
-    """Raise unless the port runs ``cfg``'s family (only ``dense`` so far)."""
-    if cfg.family == "dense":
+    """Raise unless the port runs ``cfg``'s family (``dense``, ``zamba2``)."""
+    if cfg.family in ("dense", "zamba2"):
         return
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(
@@ -96,6 +103,13 @@ class ModelConfig:
 
     def scaled(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def ssm_dims(self):
+        """Mamba-2 widths (H, P, N, d_in): H = 2 d_model / P heads of width
+        P = ``ssm_head_dim`` (expand factor 2), state width N, d_in = H P."""
+        P = self.ssm_head_dim
+        H = max(1, (2 * self.d_model) // P)
+        return H, P, self.ssm_state, H * P
 
     # -- parameter counting ------------------------------------------------
     def param_count(self) -> int:
@@ -165,26 +179,57 @@ def init_mlp(gen, d_in, d_ff, act, device, dtype) -> Dict:
     return p
 
 
+def init_mamba2(gen, c: ModelConfig, device, dtype) -> Dict:
+    """One Mamba-2 mixer: the fused input projection to (x, gate, B, C, dt),
+    the depthwise conv over (x, B, C), and f32 ``A_log``/``dt_bias``."""
+    d = c.d_model
+    H, _, N, d_in = c.ssm_dims()
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+    return {
+        "w_in": _dense(gen, (d, 2 * d_in + 2 * N + H), device, dtype),
+        "conv_w": _dense(gen, (c.ssm_conv, d_in + 2 * N), device, dtype,
+                         scale=0.5),
+        "A_log": torch.zeros((H,), dtype=torch.float32, device=device),
+        "D": ones(H),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=device),
+        "w_out": _dense(gen, (d_in, d), device, dtype),
+        "norm": ones(d),
+        "gate_norm": ones(d_in),
+    }
+
+
 def init_params(gen: torch.Generator, c: ModelConfig, device) -> Dict:
-    """Random parameters of a dense model, drawn from ``gen`` (a generator
-    on ``device``) with the reference's shapes and scales: normal times
-    1/sqrt(fan_in), the embedding times 0.02, norms set to ones.  Weights
-    are made one tensor at a time, so no f32 copy of the model is ever
-    held."""
+    """Random parameters, drawn from ``gen`` (a generator on ``device``)
+    with the reference's shapes and scales: normal times 1/sqrt(fan_in),
+    the embedding times 0.02, the conv times 0.5, norms and ``D`` set to
+    ones, ``A_log`` and ``dt_bias`` to f32 zeros.  Weights are made one
+    tensor at a time, so no f32 copy of the model is ever held."""
     check_family(c)
     dtype, d = c.dtype, c.d_model
+
+    def block(cfg):
+        return {"attn": init_attention(gen, cfg, device, dtype),
+                "mlp": init_mlp(gen, d, c.d_ff, c.mlp_act, device, dtype),
+                "norm1": torch.ones((d,), dtype=dtype, device=device),
+                "norm2": torch.ones((d,), dtype=dtype, device=device)}
     params: Dict[str, Any] = {
         "embed": _dense(gen, (c.vocab, d), device, dtype, scale=0.02),
         "final_norm": torch.ones((d,), dtype=dtype, device=device),
     }
     if not c.tie_embeddings:
         params["lm_head"] = _dense(gen, (d, c.vocab), device, dtype)
-    params["layers"] = [{
-        "attn": init_attention(gen, c, device, dtype),
-        "mlp": init_mlp(gen, d, c.d_ff, c.mlp_act, device, dtype),
-        "norm1": torch.ones((d,), dtype=dtype, device=device),
-        "norm2": torch.ones((d,), dtype=dtype, device=device),
-    } for _ in range(c.n_layers)]
+    if c.family == "zamba2":
+        params["layers"] = [init_mamba2(gen, c, device, dtype)
+                            for _ in range(c.n_layers)]
+        # the shared block is a dense, MHA-or-GQA block with no qk-norm
+        shared = ModelConfig(name="shared", family="dense", n_layers=1,
+                             d_model=d, n_heads=c.n_heads, d_ff=c.d_ff,
+                             vocab=1, n_kv_heads=c.n_kv_heads, dtype=dtype)
+        params["shared"] = block(shared)
+    else:
+        params["layers"] = [block(c) for _ in range(c.n_layers)]
     return params
 
 

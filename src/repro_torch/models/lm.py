@@ -1,20 +1,27 @@
-"""Model assembly for the dense family: forward pass (training / prefill)
-and single-token decode (the JAX package's ``models/lm.py``, in PyTorch).
+"""Model assembly for the dense and zamba2 families: forward pass
+(training / prefill) and single-token decode (the JAX package's
+``models/lm.py``, in PyTorch).
 
-embed -> per-layer [RMSNorm, attention, residual, RMSNorm, MLP, residual]
--> final RMSNorm -> tied logits.  A Python loop over ``params["layers"]``
-takes the place of the reference's ``lax.scan``.  The decode cache is
-updated in place, where the reference donates it to ``jit``.
+dense:  embed -> per-layer [RMSNorm, attention, residual, RMSNorm, MLP,
+        residual] -> final RMSNorm -> tied logits.
+zamba2: embed -> groups of ``shared_attn_every`` Mamba-2 layers, each group
+        followed by the one shared attention + MLP block -> final RMSNorm
+        -> tied logits.
+
+A Python loop over ``params["layers"]`` takes the place of the reference's
+``lax.scan``.  The decode cache is updated in place, where the reference
+donates it to ``jit``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from repro_torch.models.common import ModelConfig, check_family
 from repro_torch.models.layers import (GLOBAL_WINDOW, attention_block,
                                        decode_attention, mlp, rms_norm, rope)
+from repro_torch.models.mamba2 import mamba2_layer
 
 
 def layer_windows(cfg: ModelConfig) -> List[int]:
@@ -46,6 +53,8 @@ def forward(params, cfg: ModelConfig, tokens, *, block_kv: int = 0):
     """tokens (B, S) -> (logits (B, S, V), aux_loss scalar)."""
     check_family(cfg)
     block_kv = block_kv or cfg.attn_block_kv or (1 << 30)
+    if cfg.family == "zamba2":
+        return _forward_zamba2(params, cfg, tokens, block_kv)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for lp, win in zip(params["layers"], layer_windows(cfg)):
@@ -57,51 +66,120 @@ def forward(params, cfg: ModelConfig, tokens, *, block_kv: int = 0):
     return _logits(params, cfg, h), aux
 
 
+def _shared_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """zamba2: the shared block's period k and its number of applications."""
+    k = cfg.shared_attn_every or cfg.n_layers
+    return k, cfg.n_layers // k
+
+
+def _forward_zamba2(params, cfg, tokens, block_kv: int):
+    """Mamba2 backbone with the shared attention block every k layers."""
+    h = _embed(params, cfg, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    k, G = _shared_groups(cfg)
+    sp = params["shared"]
+    for g in range(G):
+        for lp in params["layers"][g * k:(g + 1) * k]:
+            h, _, _ = mamba2_layer(h, lp, cfg)
+        h = h + attention_block(rms_norm(h, sp["norm1"]), sp["attn"], cfg,
+                                positions, causal=True, window=GLOBAL_WINDOW,
+                                block_kv=block_kv)
+        h = h + mlp(rms_norm(h, sp["norm2"]), sp["mlp"], cfg.mlp_act)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _logits(params, cfg, h), aux
+
+
 # ---------------------------------------------------------------------------
 # Decode (serving)
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Dict[str, Any]:
-    """Zeroed KV cache (L, batch, max_len, KV, D) in ``cfg.dtype``; ``len``
-    is the number of positions written, a Python int."""
+    """Zeroed decode cache; ``len`` is the number of positions written, a
+    Python int.  dense: KV cache (L, batch, max_len, KV, D) in
+    ``cfg.dtype``.  zamba2: per layer the conv window (L, batch, K - 1,
+    d_in + 2N) in ``cfg.dtype`` and the SSM state (L, batch, H, P, N) in
+    f32, and a KV cache (G, batch, max_len, KV, D) for the G applications
+    of the shared block."""
     check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "len": 0}
+    n_kv = cfg.n_layers
+    cache: Dict[str, Any] = {}
+    if cfg.family == "zamba2":
+        H, P, N, d_in = cfg.ssm_dims()
+        n_kv = _shared_groups(cfg)[1]
+        cache["conv"] = torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                                     d_in + 2 * N), dtype=cfg.dtype,
+                                    device=device)
+        cache["ssm"] = torch.zeros((cfg.n_layers, batch, H, P, N),
+                                   dtype=torch.float32, device=device)
+    shape = (n_kv, batch, max_len, cfg.kv_heads, cfg.hd)
+    cache["k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    cache["v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    cache["len"] = 0
+    return cache
+
+
+def _attend(h, p, cfg, cache, i, positions, window):
+    """One decode step of attention over KV cache slot ``i``: projections,
+    qk-norm, RoPE at ``positions`` (a (1, 1) tensor holding the step's
+    position ``cache["len"]``), the step's keys and values written there in
+    place, attention over the cache, output projection."""
+    B = h.shape[0]
+    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.hd
+    pos = cache["len"]
+    q = (h @ p["wq"]).reshape(B, 1, H, D)
+    k = (h @ p["wk"]).reshape(B, 1, KV, D)
+    v = (h @ p["wv"]).reshape(B, 1, KV, D)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    kc, vc = cache["k"][i], cache["v"][i]
+    kc[:, pos] = k[:, 0]
+    vc[:, pos] = v[:, 0]
+    o = decode_attention(q, kc, vc, pos + 1, window=window)
+    return o.reshape(B, 1, H * D) @ p["wo"]
 
 
 def decode_step(params, cfg: ModelConfig, cache, token):
     """One decode step.  token: (B, 1) int -> (logits (B,1,V), cache).
 
-    Writes the step's keys and values into ``cache`` in place and returns
-    it with ``len`` advanced by one."""
+    Updates ``cache`` in place (keys and values; zamba2's conv windows and
+    SSM states) and returns it with ``len`` advanced by one."""
     check_family(cfg)
-    B = token.shape[0]
     pos = cache["len"]
     if pos >= cache["k"].shape[2]:
         raise ValueError(f"the cache holds {cache['k'].shape[2]} positions; "
                          f"position {pos} does not fit")
     h = _embed(params, cfg, token)                       # (B, 1, d)
     positions = torch.full((1, 1), pos, device=h.device)
-    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.hd
-    for i, (lp, win) in enumerate(zip(params["layers"], layer_windows(cfg))):
-        x = rms_norm(h, lp["norm1"])
-        p = lp["attn"]
-        q = (x @ p["wq"]).reshape(B, 1, H, D)
-        k = (x @ p["wk"]).reshape(B, 1, KV, D)
-        v = (x @ p["wv"]).reshape(B, 1, KV, D)
-        if cfg.qk_norm:
-            q = rms_norm(q, p["q_norm"])
-            k = rms_norm(k, p["k_norm"])
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        kc, vc = cache["k"][i], cache["v"][i]
-        kc[:, pos] = k[:, 0]
-        vc[:, pos] = v[:, 0]
-        o = decode_attention(q, kc, vc, pos + 1, window=win)
-        h = h + o.reshape(B, 1, H * D) @ p["wo"]
-        h = h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
+    if cfg.family == "zamba2":
+        h = _decode_zamba2(params, cfg, cache, h, positions)
+    else:
+        for i, (lp, win) in enumerate(zip(params["layers"],
+                                          layer_windows(cfg))):
+            h = h + _attend(rms_norm(h, lp["norm1"]), lp["attn"], cfg, cache,
+                            i, positions, win)
+            h = h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
     cache["len"] = pos + 1
     return _logits(params, cfg, h), cache
+
+
+def _decode_zamba2(params, cfg, cache, h, positions):
+    """zamba2's layers for one decode step: each Mamba-2 layer advances its
+    conv window and SSM state in place, each shared block its KV slot."""
+    k, G = _shared_groups(cfg)
+    sp = params["shared"]
+    for g in range(G):
+        for i in range(g * k, (g + 1) * k):
+            h, conv, ssm = mamba2_layer(h, params["layers"][i], cfg,
+                                        conv_state=cache["conv"][i],
+                                        ssm_state=cache["ssm"][i],
+                                        decode=True)
+            cache["conv"][i].copy_(conv)
+            cache["ssm"][i].copy_(ssm)
+        h = h + _attend(rms_norm(h, sp["norm1"]), sp["attn"], cfg, cache, g,
+                        positions, GLOBAL_WINDOW)
+        h = h + mlp(rms_norm(h, sp["norm2"]), sp["mlp"], cfg.mlp_act)
+    return h

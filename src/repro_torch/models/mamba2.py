@@ -1,0 +1,105 @@
+"""Mamba-2 (SSD) mixer for the Zamba2 hybrid (the JAX package's
+``models/mamba2.py``, in PyTorch).
+
+State-space dual form: scalar decay per head per token, chunked (intra-chunk
+quadratic with non-positive exponents, inter-chunk state scan).  Decode keeps
+an O(1) (conv, state) cache.
+
+Recurrence (per head h, state S in R^{P x N}):
+    S_t = a_t S_{t-1} + dt_t (x_t B_t^T)
+    y_t = S_t C_t + D x_t
+with a_t = exp(-dt_t * exp(A_log_h)).
+
+``mamba2_layer``'s prefill scan goes through ``kernels/mamba2_ssd.ops.ssd``,
+which launches the hand-written SSD kernel on a CUDA tensor and runs
+``ssd_chunked`` on a CPU tensor; the choice follows the tensor's device,
+never a failure.  Decode's one-step update is plain PyTorch, as it is plain
+jnp in the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.mamba2_ssd.ops import ssd
+from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
+from repro_torch.models.layers import rms_norm
+
+#: the chunked SSD that ``ssd`` runs on the CPU: the kernel's plain
+#: version, which adds the D * x skip in f32 and rounds once, as the
+#: reference's ``ssd_chunked`` does
+ssd_chunked = ssd_torch
+
+
+def silu(x):
+    """x * sigmoid(x) with the sigmoid written out, 1 / (1 + exp(-x)), and
+    every step rounded to x's dtype: what the reference's ``jax.nn.silu``
+    computes in bf16.  ``F.silu`` rounds once; in bf16 that alone moves the
+    logits of the 4-layer smoke model 0.1-0.2 from the reference's, beyond
+    its 5e-2 (the conv and the gate each take a silu in every layer)."""
+    return x * torch.reciprocal(torch.exp(-x) + 1)
+
+
+def _split_proj(z, cfg):
+    """Split the fused input projection into (x, gate, B, C, dt)."""
+    H, P, N, d_in = cfg.ssm_dims()
+    x, gate, B, C, dt = torch.split(z, [d_in, d_in, N, N, H], dim=-1)
+    return x, gate, B, C, dt, H, P, N, d_in
+
+
+def _causal_conv(x, w, conv_state=None):
+    """Depthwise causal conv1d.  x: (B, S, C), w: (K, C).  The K shifted
+    products are summed in x's dtype in the reference's order."""
+    K = w.shape[0]
+    if conv_state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([conv_state, x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(K))
+    return silu(out), xp[:, -(K - 1):, :]
+
+
+def ssd_sequential(x, dt, A_log, B, C, D):
+    """Sequential oracle for tests: one step of the recurrence at a time."""
+    Bsz, S, H, P = x.shape
+    N = B.shape[-1]
+    a = torch.exp(-dt.float() * torch.exp(A_log.float()))
+    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        state = state * a[:, t][..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, t].float(), x[:, t].float(),
+            B[:, t].float())
+        ys.append(torch.einsum("bhpn,bn->bhp", state, C[:, t].float()))
+    y = torch.stack(ys, dim=1)
+    return (y + D.float()[None, None, :, None] * x.float()).to(x.dtype)
+
+
+def mamba2_layer(x, p, cfg, conv_state=None, ssm_state=None,
+                 decode: bool = False):
+    """Full Mamba2 block over one layer's weights.  x: (B, S, d).  Returns
+    (out, conv_state, ssm_state); in prefill the incoming ``ssm_state`` is
+    returned unchanged, as in the reference."""
+    B_, S, d = x.shape
+    h = rms_norm(x, p["norm"])
+    z = h @ p["w_in"]
+    xin, gate, Bv, Cv, dt, H, P, N, d_in = _split_proj(z, cfg)
+    conv_in = torch.cat([xin, Bv, Cv], dim=-1)
+    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], conv_state)
+    xin, Bv, Cv = torch.split(conv_out, [d_in, N, N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
+    xh = xin.reshape(B_, S, H, P)
+    if decode:
+        a = torch.exp(-dt[:, 0] * torch.exp(p["A_log"])[None, :])
+        x0 = xh[:, 0].float()
+        new_state = ssm_state * a[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, 0], x0, Bv[:, 0].float())
+        y = torch.einsum("bhpn,bn->bhp", new_state, Cv[:, 0].float())
+        y = y + p["D"].float()[None, :, None] * x0
+        y = y[:, None].to(x.dtype)
+    else:
+        y = ssd(xh, dt, p["A_log"], Bv, Cv, p["D"])
+        new_state = ssm_state
+    y = y.reshape(B_, S, d_in)
+    y = rms_norm(y, p["gate_norm"]) * silu(gate)
+    return x + y @ p["w_out"], new_conv, new_state

@@ -24,6 +24,7 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "import repro_torch.kernels.cgra_exec.ops\n"
         "import repro_torch.kernels.cgra_exec.edge_cases\n"
         "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.mamba2_ssd.ops\n"
         "import repro_torch.models.lm, repro_torch.configs\n"
         "import repro_torch.serve.serve_step, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules\n"
