@@ -12,11 +12,11 @@ the kernels.  The execution path: ``ual.compile`` ->
 ``Executable.validate`` / ``run_batch`` on the ``cuda`` backend at the sizes
 the paper's users run (the benchmark kernels on HyCUBE 4x4 and PACE 8x8, an
 8192-word scratchpad, batches of 4096 test vectors).  The serving paths:
-qwen3-8b (36 layers) and zamba2-2.7b (54 Mamba-2 layers and 9 applications
-of the shared attention block) at their published widths, random weights
-from the seed (zamba2's per-head decay from Mamba-2's initial ranges), through
-``prefill_fn`` and ``greedy_generate``.  Each phase
-prints one JSON line:
+qwen3-8b (36 layers), zamba2-2.7b (54 Mamba-2 layers and 9 applications
+of the shared attention block) and rwkv6-1.6b (24 RWKV-6 blocks) at their
+published widths, random weights from the seed (zamba2's per-head decay from
+Mamba-2's initial ranges), through ``prefill_fn`` and ``greedy_generate``.
+Each phase prints one JSON line:
 
   device           the card's name and power limit (``nvidia-smi``), versions
   build            per kernel: build time and ptxas resource lines
@@ -38,6 +38,13 @@ prints one JSON line:
                    carries across chunks, two planted faults (the state
                    dropped at one chunk boundary; the carried state's decay
                    left out of every update) that the bound must catch,
+                   kernel and plain ms, the bound
+  wkv              per case: the RWKV-6 WKV kernel vs its plain version
+                   (the same per-element bounds) on decays of the model's
+                   own slow range, under which the state carries across
+                   chunks, three planted faults (the state dropped at one
+                   chunk boundary; its decayed term left out of every
+                   update; the u bonus left out) that the bound must catch,
                    kernel and plain ms, the bound
   lm_prefill       per model, in bf16, B = 2 x 2048 tokens: wall ms, kernel
                    launches, peak memory; the kernel path vs the plain
@@ -122,15 +129,29 @@ SSD_CASES = [
 #: Mamba-2's initial ranges (state-spaces/mamba, ``Mamba2``: A_init_range,
 #: dt_min, dt_max): A in [1, 16], dt log-uniform in [1e-3, 1e-1]
 A_RANGE, DT_RANGE = (1.0, 16.0), (1e-3, 1e-1)
+#: (name, B, S, H, K, dtype, decay) of the WKV phase: rwkv6-1.6b's prefill
+#: (B = 2, S = 2048, 32 heads of 64) in bf16 and f32, at B = 1, at a ragged
+#: length, a small head, and the prefill shape with every channel slow
+#: (``wkv_inputs``)
+WKV_CASES = [
+    ("rwkv6-prefill", 2, 2048, 32, 64, "bfloat16", "mixed"),
+    ("rwkv6-B1", 1, 2048, 32, 64, "bfloat16", "mixed"),
+    ("rwkv6-prefill-f32", 2, 2048, 32, 64, "float32", "mixed"),
+    ("ragged", 2, 2000, 32, 64, "bfloat16", "mixed"),
+    ("small-k16", 3, 200, 8, 16, "float32", "mixed"),
+    ("rwkv6-slow-decay", 2, 2048, 32, 64, "bfloat16", "slow"),
+]
 #: the serving phases: each model at full width, B = 2 prompts of 2048
 #: tokens, 4 requests x 16 new tokens
-LM_ARCHS, PREFILL_B, PREFILL_S = ("qwen3-8b", "zamba2-2.7b"), 2, 2048
+LM_ARCHS = ("qwen3-8b", "zamba2-2.7b", "rwkv6-1.6b")
+PREFILL_B, PREFILL_S = 2, 2048
 SERVE_REQUESTS, SERVE_NEW = 4, 16
-#: the serving profiles' kernel groups: the two kernels, and cuBLAS's
+#: the serving profiles' kernel groups: the three kernels, and cuBLAS's
 #: matrix products (its Hopper kernels are named nvjet / sm90_xmma)
 LM_GROUPS = {
     "attn_kernel_ms": lambda n: "attn_kernel" in n,
     "ssd_kernel_ms": lambda n: "ssd_kernel" in n,
+    "wkv_kernel_ms": lambda n: "wkv6_kernel" in n,
     "gemm_ms": lambda n: ("gemm" in n or "cutlass" in n or "nvjet" in n
                           or "sm90_xmma" in n),
 }
@@ -246,6 +267,7 @@ def build_all() -> None:
     from repro_torch.kernels.cgra_exec import ops as cgra_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
 
     def timed(mod):
         t0 = time.perf_counter()
@@ -253,7 +275,7 @@ def build_all() -> None:
         return lib, time.perf_counter() - t0
 
     kernels = (("cgra_exec", cgra_ops), ("flash_attention", fa_ops),
-               ("mamba2_ssd", ssd_ops))
+               ("mamba2_ssd", ssd_ops), ("rwkv6", wkv_ops))
     with ThreadPoolExecutor(len(kernels)) as pool:
         futs = {name: pool.submit(timed, mod) for name, mod in kernels}
         for name, fut in futs.items():
@@ -623,40 +645,37 @@ def ssd_inputs(gen, B, S, H, P, N, dtype, decay: str):
     return x, dt, torch.log(A), Bm, Cm, randn(H)
 
 
-def dropped_state(x, dt, A_log, B, C, D, at: int):
-    """What a faulty kernel returns from step ``at`` on (a chunk boundary)
-    if it drops the carried state there: the plain arithmetic restarted
-    from a zero state at ``at``."""
+def ssd_window(x, dt, A_log, B, C, D):
+    """The plain SSD over a slice of the steps, from a zero state."""
     from repro_torch.kernels.mamba2_ssd.ops import CHUNK
     from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
-    return ssd_torch(x[:, at:], dt[:, at:], A_log, B[:, at:], C[:, at:], D,
-                     chunk=CHUNK)
+
+    def run(w: slice):
+        return ssd_torch(x[:, w], dt[:, w], A_log, B[:, w], C[:, w], D,
+                         chunk=CHUNK)
+    return run
 
 
-def undecayed_state(x, dt, A_log, B, C, D):
-    """What a faulty kernel returns if its state update leaves out the
-    carried state's decay (S <- (x kdec)^T B in place of exp(cum_L) S +
-    (x kdec)^T B): each chunk then sees the state of the chunk before it
-    alone, so its output is the plain arithmetic over that pair of chunks
-    from a zero state."""
+def undecayed(run, S: int, chunk: int):
+    """What a faulty scan returns if its state update leaves out the
+    carried state's term (the SSD's exp(cum_L) S, the WKV's diag(exp(cum_L))
+    S): each chunk then sees the state of the chunk before it alone, so its
+    output is the plain arithmetic over that pair of chunks from a zero
+    state.  ``run(w)`` is the plain version over the steps of slice ``w``
+    (``ssd_window``, ``wkv_window``); a faulty kernel that drops the state
+    at a chunk boundary ``at`` returns ``run(slice(at, None))`` from there."""
     import torch
-
-    from repro_torch.kernels.mamba2_ssd.ops import CHUNK
-    from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
-    S = x.shape[1]
-    outs = [ssd_torch(x[:, :CHUNK], dt[:, :CHUNK], A_log, B[:, :CHUNK],
-                      C[:, :CHUNK], D, chunk=CHUNK)]
-    for s0 in range(CHUNK, S, CHUNK):
-        w = slice(s0 - CHUNK, min(s0 + CHUNK, S))
-        outs.append(ssd_torch(x[:, w], dt[:, w], A_log, B[:, w], C[:, w], D,
-                              chunk=CHUNK)[:, CHUNK:])
+    outs = [run(slice(0, chunk))]
+    for s0 in range(chunk, S, chunk):
+        outs.append(run(slice(s0 - chunk, min(s0 + chunk, S)))[:, chunk:])
     return torch.cat(outs, dim=1)
 
 
 def ssd_phases(dev) -> dict:
     """The Mamba-2 SSD kernel against its plain version on every case, with
-    the planted faults of ``dropped_state`` (at the middle chunk boundary)
-    and ``undecayed_state`` held to the same bound (each must fail it), the
+    the planted faults ``dropped_state`` (at the middle chunk boundary)
+    and ``undecayed_state`` (``undecayed``) held to the same bound (each
+    must fail it), the
     kernel's time, the plain version's and the bound.  Returns the kernel's
     summary entry, less the main path's launches."""
     import torch
@@ -673,11 +692,12 @@ def ssd_phases(dev) -> dict:
         # the middle chunk boundary (every case has two chunks or more)
         at = ((S - 1) // CHUNK + 1) // 2 * CHUNK
         check(0 < at < S, f"ssd {name}: S = {S} has no chunk boundary")
+        run = ssd_window(*args)
         res = check_case(
             "ssd", name, dt_name, lambda: ops.ssd(*args),
             lambda: ssd_torch(*args, chunk=CHUNK),
-            {"dropped_state": lambda: (dropped_state(*args, at=at), at),
-             "undecayed_state": lambda: (undecayed_state(*args), 0)})
+            {"dropped_state": lambda: (run(slice(at, None)), at),
+             "undecayed_state": lambda: (undecayed(run, S, CHUNK), 0)})
         max_err = max(max_err, res["max_abs_err"])
         b_ms, b_by, flops, kflops, nbytes = ssd_bound(B, S, H, P, N, dt_name)
         rows[name] = row = {
@@ -701,6 +721,109 @@ def ssd_phases(dev) -> dict:
                  "bf16 x/B/C, f32 dt"}
 
 
+def wkv_bound(B, S, H, K, dtype):
+    """Least time for one WKV call: per (batch, head) and chunk of l steps,
+    (r exp(cum_ex)) S and the state update (2 l K^2 multiply-adds), a and
+    a v over the l (l - 1) / 2 causal pairs (K each), and the bonus (2 l K),
+    at 2 flops a multiply-add over the peak rate of ``dtype``; against r,
+    k, v, u read once in ``dtype``, log_w in f32 and o written once over
+    HBM's rate."""
+    from repro_torch.kernels.rwkv6.ops import CHUNK
+    item = 2 if dtype == "bfloat16" else 4
+    lens = [min(CHUNK, S - s0) for s0 in range(0, S, CHUNK)]
+    flops = sum(B * H * 2 * (2 * ln * K * K + K * ln * (ln - 1) + 2 * ln * K)
+                for ln in lens)
+    nbytes = 4 * item * B * S * H * K + 4 * B * S * H * K + item * H * K
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def wkv_inputs(gen, B, S, H, K, dtype, decay: str):
+    """r, k, v, log_w, u of one WKV case: r, k, v normal and u 0.5 normal in
+    ``dtype``, log_w in f32.  "slow": log_w = -exp(-5 + 0.5 normal), about
+    -0.0067 a step, the model's own range at its initialisation (w_bias =
+    -5, ww at 0.01), under which the state decays by about 0.81 over a
+    chunk and carries across chunks; "mixed": the odd channels instead
+    -exp(normal), about -1 a step, under which it dies within a chunk.
+    Both clamped at LOG_W_MIN = -8."""
+    import torch
+
+    from repro_torch.models.rwkv6 import LOG_W_MIN
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    r, k, v = (randn(B, S, H, K).to(dtype) for _ in range(3))
+    log_w = -torch.exp(-5.0 + 0.5 * randn(B, S, H, K))
+    if decay == "mixed":
+        log_w[..., 1::2] = -torch.exp(randn(B, S, H, K)[..., 1::2])
+    return r, k, v, log_w.clamp_min(LOG_W_MIN), (0.5 * randn(H, K)).to(dtype)
+
+
+def wkv_window(r, k, v, log_w, u):
+    """The plain WKV over a slice of the steps, from a zero state."""
+    from repro_torch.kernels.rwkv6.ops import CHUNK
+    from repro_torch.kernels.rwkv6.ref import wkv6_torch
+
+    def run(w: slice):
+        return wkv6_torch(r[:, w], k[:, w], v[:, w], log_w[:, w], u,
+                          chunk=CHUNK)
+    return run
+
+
+def wkv_phases(dev) -> dict:
+    """The RWKV-6 WKV kernel against its plain version on every case, with
+    the planted faults ``dropped_state`` (at the middle chunk boundary),
+    ``undecayed_state`` (``undecayed``) and ``no_bonus`` (u = 0) held to the
+    same bound (each must fail it), the kernel's time, the plain version's
+    and the bound.  Returns the kernel's summary entry, less the main path's
+    launches."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.kernels.rwkv6.ops import CHUNK
+    from repro_torch.kernels.rwkv6.ref import wkv6_torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    max_err = 0.0
+    for name, B, S, H, K, dt_name, decay in WKV_CASES:
+        args = wkv_inputs(gen, B, S, H, K, getattr(torch, dt_name), decay)
+        r, k, v, log_w, u = args
+        at = ((S - 1) // CHUNK + 1) // 2 * CHUNK
+        check(0 < at < S, f"wkv {name}: S = {S} has no chunk boundary")
+        run = wkv_window(*args)
+        res = check_case(
+            "wkv", name, dt_name, lambda: ops.wkv6(*args),
+            lambda: wkv6_torch(*args, chunk=CHUNK),
+            {"dropped_state": lambda: (run(slice(at, None)), at),
+             "undecayed_state": lambda: (undecayed(run, S, CHUNK), 0),
+             "no_bonus": lambda: (wkv6_torch(r, k, v, log_w,
+                                             torch.zeros_like(u),
+                                             chunk=CHUNK), 0)})
+        max_err = max(max_err, res["max_abs_err"])
+        b_ms, b_by, flops, nbytes = wkv_bound(B, S, H, K, dt_name)
+        rows[name] = row = {
+            "case": name, "B": B, "S": S, "H": H, "K": K, "dtype": dt_name,
+            "decay": decay, "fault_at": at, **res, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": nbytes, "tflop_s": flops / res["ms"] / 1e9,
+            "gb_s": nbytes / res["ms"] / 1e6}
+        emit("wkv", **row)
+    lead = rows["rwkv6-prefill"]
+    return {
+        "name": "rwkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:24",
+        "launches": None, "max_abs_err": max_err,
+        "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+        "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+        "library_ms": None,
+        "shape": "rwkv6-1.6b prefill WKV: B=2, S=2048, H=32, K=64, bf16 "
+                 "r/k/v/u, f32 log_w"}
+
+
 def to_f32(tree):
     """An f32 copy of a parameter tree."""
     if isinstance(tree, dict):
@@ -711,32 +834,24 @@ def to_f32(tree):
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Within the block, the model's attention on the card is the kernel's
-    plain version (``flash_attention_torch``) in place of the kernel: the
-    plain path the kernel path is held against."""
+def plain_kernels():
+    """Within the block, the model's kernels on the card are their plain
+    versions (``flash_attention_torch``, ``ssd_torch``, ``wkv6_torch``) in
+    place of the kernels: the plain path the kernel path is held against."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_torch
-    from repro_torch.models import layers
-    kernel = layers.flash_attention
-    layers.flash_attention = flash_attention_torch
-    try:
-        yield
-    finally:
-        layers.flash_attention = kernel
-
-
-@contextlib.contextmanager
-def plain_ssd():
-    """Within the block, the model's SSD scan on the card is the kernel's
-    plain version (``ssd_torch``) in place of the kernel."""
     from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
-    from repro_torch.models import mamba2
-    kernel = mamba2.ssd
-    mamba2.ssd = ssd_torch
+    from repro_torch.kernels.rwkv6.ref import wkv6_torch
+    from repro_torch.models import layers, mamba2, rwkv6
+    swaps = ((layers, "flash_attention", flash_attention_torch),
+             (mamba2, "ssd", ssd_torch), (rwkv6, "wkv6", wkv6_torch))
+    kernels = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        mamba2.ssd = kernel
+        for (module, name, _), kernel in zip(swaps, kernels):
+            setattr(module, name, kernel)
 
 
 def mamba2_decay_init(layers, gen) -> None:
@@ -771,21 +886,25 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models.common import init_params, param_bytes
     from repro_torch.models.lm import forward, init_cache
     from repro_torch.serve.serve_step import decode_fn, prefill_fn
 
     cfg = get_config(arch)
-    kernels = {"flash_attention": fa_ops, "mamba2_ssd": ssd_ops}
+    kernels = {"flash_attention": fa_ops, "mamba2_ssd": ssd_ops,
+               "rwkv6": wkv_ops}
     # launches a prefill must make: one attention per attention block, one
-    # SSD scan per Mamba-2 layer
+    # SSD scan per Mamba-2 layer, one WKV per RWKV-6 block; decode none
+    per_prefill = dict.fromkeys(kernels, 0)
     if cfg.family == "zamba2":
-        per_prefill = {"flash_attention":
-                       cfg.n_layers // cfg.shared_attn_every,
-                       "mamba2_ssd": cfg.n_layers}
+        per_prefill.update(flash_attention=cfg.n_layers
+                           // cfg.shared_attn_every, mamba2_ssd=cfg.n_layers)
+    elif cfg.family == "rwkv6":
+        per_prefill["rwkv6"] = cfg.n_layers
     else:
-        per_prefill = {"flash_attention": cfg.n_layers, "mamba2_ssd": 0}
+        per_prefill["flash_attention"] = cfg.n_layers
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S)).astype(np.int32)).to(dev)
@@ -825,6 +944,9 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
         check(prefill_launches[k] == 2 * n,
               f"{arch}: two prefills launched {k} {prefill_launches[k]} "
               f"times, expected {n} per prefill")
+    check(main_launches == prefill_launches,
+          f"{arch}: decode launched kernels: {main_launches} after the "
+          f"prefills' {prefill_launches}")
     check(bool(torch.isfinite(last).all()), "prefill logits not finite")
     check(tuple(last.shape) == (PREFILL_B, cfg.vocab),
           f"prefill logits {tuple(last.shape)}")
@@ -835,14 +957,14 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
     # end 0.1-0.3 apart at the logits: the bf16 numbers are printed, not
     # checked, and the kernels' bf16 arithmetic is held per call above
     t0 = time.perf_counter()
-    with plain_attention(), plain_ssd():
+    with plain_kernels():
         plain = forward(params, cfg, tokens)[0][:, -1]
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     cfg32 = cfg.scaled(dtype=torch.float32)
     params32 = to_f32(params)                 # the same weights, in f32
     kern32 = forward(params32, cfg32, tokens)[0][:, -1]
-    with plain_attention(), plain_ssd():
+    with plain_kernels():
         plain32 = forward(params32, cfg32, tokens)[0][:, -1]
     err = {"kernel_vs_plain": rel_l2(last, plain),
            "kernel_vs_f32": rel_l2(last, plain32),
@@ -960,18 +1082,20 @@ def main(argv=None) -> int:
     cgra = cgra_phases(dev, np.random.default_rng(args.seed))
     flash = flash_phases(dev)
     ssd = ssd_phases(dev)
-    launches = {"flash_attention": 0, "mamba2_ssd": 0}
+    wkv = wkv_phases(dev)
+    launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0}
     for arch in LM_ARCHS:
         for k, n in lm_phases(dev, args.seed, arch).items():
             launches[k] += n
     flash["launches"] = launches["flash_attention"]
     ssd["launches"] = launches["mamba2_ssd"]
-    for entry in (flash, ssd):
+    wkv["launches"] = launches["rwkv6"]
+    for entry in (flash, ssd, wkv):
         check(entry["launches"] > 0, f"the serving path never launched "
                                      f"{entry['name']}")
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port imported jax or the JAX package")
-    print(json.dumps({"kernels": [cgra, flash, ssd]}), flush=True)
+    print(json.dumps({"kernels": [cgra, flash, ssd, wkv]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves through ``get_config``.
 
-The dense architectures and zamba2-2.7b of the JAX package's registry, at
-their published widths; the other families' configurations come with their
-ports (ROADMAP A9).  ``smoke_config`` gives a reduced same-family configuration
-for CPU tests, as in the reference.
+The dense architectures, rwkv6-1.6b and zamba2-2.7b of the JAX package's
+registry, at their published widths; the other families' configurations
+come with their ports (ROADMAP A9).  ``smoke_config`` gives a reduced
+same-family configuration for CPU tests, as in the reference.
 """
 from __future__ import annotations
 
@@ -14,11 +14,13 @@ from repro_torch.configs.gemma3_27b import CONFIG as _gemma3
 from repro_torch.configs.h2o_danube3_4b import CONFIG as _danube3
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as _danube18
 from repro_torch.configs.qwen3_8b import CONFIG as _qwen3
+from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
 from repro_torch.configs.zamba2_2_7b import CONFIG as _zamba2
 from repro_torch.models.common import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (_gemma3, _qwen3, _danube3, _danube18, _zamba2)
+    c.name: c for c in (_gemma3, _qwen3, _danube3, _danube18, _rwkv6,
+                        _zamba2)
 }
 
 FAMILIES = {name: c.family for name, c in ARCHS.items()}
@@ -32,7 +34,7 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config: tiny layers/width/vocab (the reference's
-    reductions for the dense and zamba2 families)."""
+    reductions for the dense, rwkv6 and zamba2 families)."""
     c = get_config(name)
     kw = dict(
         n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=256,
@@ -40,6 +42,8 @@ def smoke_config(name: str) -> ModelConfig:
     )
     if c.n_kv_heads:
         kw["n_kv_heads"] = min(c.n_kv_heads, 2)
+    if c.family == "rwkv6":
+        kw.update(n_heads=4, d_model=64)          # head size 16
     if c.family == "zamba2":
         kw.update(n_layers=4, shared_attn_every=2, ssm_state=16,
                   ssm_head_dim=16, n_kv_heads=4)

@@ -113,7 +113,8 @@ def lm_params_from_state(state: Dict[str, object], cfg: ModelConfig,
     arrays (per-layer weights stacked on a leading ``(L, ...)`` axis, as the
     reference's ``init_params`` makes them), on ``device``, each in its own
     dtype.  dense: ``attn``, ``mlp``, ``norm1``, ``norm2`` stacked ``(L,
-    ...)``.  zamba2: ``mamba`` stacked ``(L, ...)``, and ``shared_attn``,
+    ...)``.  rwkv6: ``rwkv`` stacked ``(L, ...)``.  zamba2: ``mamba``
+    stacked ``(L, ...)``, and ``shared_attn``,
     ``shared_mlp``, ``shared_norm1``, ``shared_norm2`` stacked ``(1, ...)``,
     which become ``params["shared"]``."""
     check_family(cfg)
@@ -125,14 +126,21 @@ def lm_params_from_state(state: Dict[str, object], cfg: ModelConfig,
             return {n: layer(w, i) for n, w in tree.items()}
         return _tensor(tree[i], device)
 
-    stacked = (state["mamba"]["w_in"] if cfg.family == "zamba2"
-               else state["norm1"])
+    if cfg.family == "rwkv6":
+        stacked = state["rwkv"]["norm1"]
+    elif cfg.family == "zamba2":
+        stacked = state["mamba"]["w_in"]
+    else:
+        stacked = state["norm1"]
     if np.shape(stacked)[0] != L:
         raise ValueError(f"the state stacks {np.shape(stacked)[0]} layers, "
                          f"the config has {L}")
     params: Dict[str, object] = {
         name: _tensor(state[name], device)
         for name in ("embed", "final_norm", "lm_head") if name in state}
+    if cfg.family == "rwkv6":
+        params["layers"] = [layer(state["rwkv"], i) for i in range(L)]
+        return params
     if cfg.family == "zamba2":
         params["layers"] = [layer(state["mamba"], i) for i in range(L)]
         params["shared"] = {n: layer(state[f"shared_{n}"], 0)

@@ -10,13 +10,16 @@ them in Python.  The layout, besides ``embed``, ``final_norm`` (and
 ``lm_head`` when untied):
 
   dense   ``layers[i]`` = {``attn``, ``mlp``, ``norm1``, ``norm2``}
+  rwkv6   ``layers[i]`` = one RWKV-6 block {``mix``, ``wr``, ``wk``, ``wv``,
+          ``wg``, ``ww``, ``w_bias``, ``u``, ``wo``, ``ln_x``, ``ffn_k``,
+          ``ffn_v``, ``ffn_r``, ``norm1``, ``norm2``}
   zamba2  ``layers[i]`` = one Mamba-2 mixer {``w_in``, ``conv_w``, ``A_log``,
           ``D``, ``dt_bias``, ``w_out``, ``norm``, ``gate_norm``};
           ``shared`` = the one attention + MLP block applied after every
           ``shared_attn_every`` layers, {``attn``, ``mlp``, ``norm1``,
           ``norm2``} (the reference's ``shared_*`` entries, unstacked)
 
-The dense and zamba2 families are ported; the others raise
+The dense, rwkv6 and zamba2 families are ported; the others raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -31,15 +34,15 @@ import torch
 #: families the port does not run yet -> the ROADMAP item that brings them
 UNPORTED_FAMILIES = {
     "moe": "ROADMAP A9 (models/moe)",
-    "rwkv6": "ROADMAP B4 and A9 (models/rwkv6 with the rwkv6 kernel)",
     "hubert": "ROADMAP A9 (the audio front end)",
     "paligemma": "ROADMAP A9 (the image front end, prefix-LM attention)",
 }
 
 
 def check_family(cfg: "ModelConfig") -> None:
-    """Raise unless the port runs ``cfg``'s family (``dense``, ``zamba2``)."""
-    if cfg.family in ("dense", "zamba2"):
+    """Raise unless the port runs ``cfg``'s family (``dense``, ``rwkv6``,
+    ``zamba2``)."""
+    if cfg.family in ("dense", "rwkv6", "zamba2"):
         return
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(
@@ -130,6 +133,8 @@ class ModelConfig:
                 n_mats = 3 if c.mlp_act == "silu" else 2
                 per_layer += n_mats * d * c.d_ff
         elif c.family == "rwkv6":
+            # the reference's approximate formula: the tree holds
+            # 7 d^2 + 2 d d_ff + 6 d a layer
             per_layer = 6 * d * d + 3 * d * c.d_ff + 4 * d
         elif c.family == "zamba2":
             d_in = 2 * d
@@ -200,11 +205,43 @@ def init_mamba2(gen, c: ModelConfig, device, dtype) -> Dict:
     }
 
 
+def init_rwkv6(gen, c: ModelConfig, device, dtype) -> Dict:
+    """One RWKV-6 block: the token-shift mixes of r, k, v, w, g (at 0.5),
+    the time-mix projections, the data-dependent decay ``ww`` (at 0.01) and
+    its bias ``w_bias`` (-5), the bonus ``u`` (at 0.5), the channel mix,
+    and the norms (ones)."""
+    d = c.d_model
+
+    def ones():
+        return torch.ones((d,), dtype=dtype, device=device)
+
+    def dense(*shape, scale=None):
+        return _dense(gen, shape, device, dtype, scale=scale)
+    return {
+        "mix": dense(5, d, scale=0.5),
+        "wr": dense(d, d),
+        "wk": dense(d, d),
+        "wv": dense(d, d),
+        "wg": dense(d, d),
+        "ww": dense(d, d, scale=0.01),
+        "w_bias": torch.full((d,), -5.0, dtype=dtype, device=device),
+        "u": dense(d, scale=0.5),
+        "wo": dense(d, d),
+        "ln_x": ones(),
+        "ffn_k": dense(d, c.d_ff),
+        "ffn_v": dense(c.d_ff, d),
+        "ffn_r": dense(d, d),
+        "norm1": ones(),
+        "norm2": ones(),
+    }
+
+
 def init_params(gen: torch.Generator, c: ModelConfig, device) -> Dict:
     """Random parameters, drawn from ``gen`` (a generator on ``device``)
     with the reference's shapes and scales: normal times 1/sqrt(fan_in),
-    the embedding times 0.02, the conv times 0.5, norms and ``D`` set to
-    ones, ``A_log`` and ``dt_bias`` to f32 zeros.  Weights are made one
+    the embedding times 0.02, the conv, rwkv6's mixes and ``u`` times 0.5,
+    its ``ww`` times 0.01, norms and ``D`` set to ones, ``w_bias`` to -5,
+    ``A_log`` and ``dt_bias`` to f32 zeros.  Weights are made one
     tensor at a time, so no f32 copy of the model is ever held."""
     check_family(c)
     dtype, d = c.dtype, c.d_model
@@ -220,7 +257,10 @@ def init_params(gen: torch.Generator, c: ModelConfig, device) -> Dict:
     }
     if not c.tie_embeddings:
         params["lm_head"] = _dense(gen, (d, c.vocab), device, dtype)
-    if c.family == "zamba2":
+    if c.family == "rwkv6":
+        params["layers"] = [init_rwkv6(gen, c, device, dtype)
+                            for _ in range(c.n_layers)]
+    elif c.family == "zamba2":
         params["layers"] = [init_mamba2(gen, c, device, dtype)
                             for _ in range(c.n_layers)]
         # the shared block is a dense, MHA-or-GQA block with no qk-norm

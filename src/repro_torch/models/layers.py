@@ -44,6 +44,24 @@ def rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def sigmoid(x):
+    """1 / (1 + exp(-x)) with every step rounded to x's dtype: what the
+    reference's ``jax.nn.sigmoid`` computes in bf16 (XLA lowers it to
+    negate, exp, add 1 and divide, each rounded).  ``torch.sigmoid`` rounds
+    once and differs from it by one bf16 ulp in about a third of the values
+    of a normal draw; this form differs in none."""
+    return torch.reciprocal(torch.exp(-x) + 1)
+
+
+def silu(x):
+    """x * sigmoid(x) with the sigmoid written out (``sigmoid``), what the
+    reference's ``jax.nn.silu`` computes in bf16.  ``F.silu`` rounds once;
+    in bf16 that alone moves the logits of the 4-layer zamba2 smoke model
+    0.1-0.2 from the reference's, beyond its 5e-2 (the conv and the gate
+    each take a silu in every layer)."""
+    return x * sigmoid(x)
+
+
 def mlp(x, p, act: str = "silu"):
     """Gated MLP over one layer's weights."""
     up = x @ p["w_up"]

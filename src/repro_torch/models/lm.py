@@ -1,9 +1,11 @@
-"""Model assembly for the dense and zamba2 families: forward pass
+"""Model assembly for the dense, rwkv6 and zamba2 families: forward pass
 (training / prefill) and single-token decode (the JAX package's
 ``models/lm.py``, in PyTorch).
 
 dense:  embed -> per-layer [RMSNorm, attention, residual, RMSNorm, MLP,
         residual] -> final RMSNorm -> tied logits.
+rwkv6:  embed -> per-layer RWKV-6 block (time mix with the WKV, channel
+        mix) -> final RMSNorm -> tied logits.
 zamba2: embed -> groups of ``shared_attn_every`` Mamba-2 layers, each group
         followed by the one shared attention + MLP block -> final RMSNorm
         -> tied logits.
@@ -22,6 +24,7 @@ from repro_torch.models.common import ModelConfig, check_family
 from repro_torch.models.layers import (GLOBAL_WINDOW, attention_block,
                                        decode_attention, mlp, rms_norm, rope)
 from repro_torch.models.mamba2 import mamba2_layer
+from repro_torch.models.rwkv6 import rwkv6_decode_step, rwkv6_layer
 
 
 def layer_windows(cfg: ModelConfig) -> List[int]:
@@ -53,6 +56,8 @@ def forward(params, cfg: ModelConfig, tokens, *, block_kv: int = 0):
     """tokens (B, S) -> (logits (B, S, V), aux_loss scalar)."""
     check_family(cfg)
     block_kv = block_kv or cfg.attn_block_kv or (1 << 30)
+    if cfg.family == "rwkv6":
+        return _forward_rwkv6(params, cfg, tokens)
     if cfg.family == "zamba2":
         return _forward_zamba2(params, cfg, tokens, block_kv)
     h = _embed(params, cfg, tokens)
@@ -62,6 +67,18 @@ def forward(params, cfg: ModelConfig, tokens, *, block_kv: int = 0):
                                 positions, causal=cfg.causal, window=win,
                                 block_kv=block_kv)
         h = h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _logits(params, cfg, h), aux
+
+
+def _forward_rwkv6(params, cfg, tokens):
+    """Every block starts from zero token-shift and channel-mix states (in
+    ``cfg.dtype``) and a zero WKV state."""
+    h = _embed(params, cfg, tokens)
+    zeros = torch.zeros((h.shape[0], cfg.d_model), dtype=cfg.dtype,
+                        device=h.device)
+    for lp in params["layers"]:
+        h, _, _ = rwkv6_layer(h, zeros, zeros, lp, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, cfg, h), aux
 
@@ -97,13 +114,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Dict[str, Any]:
     """Zeroed decode cache; ``len`` is the number of positions written, a
     Python int.  dense: KV cache (L, batch, max_len, KV, D) in
-    ``cfg.dtype``.  zamba2: per layer the conv window (L, batch, K - 1,
-    d_in + 2N) in ``cfg.dtype`` and the SSM state (L, batch, H, P, N) in
-    f32, and a KV cache (G, batch, max_len, KV, D) for the G applications
-    of the shared block."""
+    ``cfg.dtype``.  rwkv6: per layer the WKV state (L, batch, H, K, K) in
+    f32 and the token-shift and channel-mix states (L, batch, d) in
+    ``cfg.dtype``; no KV cache, so no length limit.  zamba2: per layer the
+    conv window (L, batch, K - 1, d_in + 2N) in ``cfg.dtype`` and the SSM
+    state (L, batch, H, P, N) in f32, and a KV cache (G, batch, max_len,
+    KV, D) for the G applications of the shared block."""
     check_family(cfg)
     n_kv = cfg.n_layers
     cache: Dict[str, Any] = {}
+    if cfg.family == "rwkv6":
+        L, d, H = cfg.n_layers, cfg.d_model, cfg.n_heads
+        K = d // H
+        cache["wkv"] = torch.zeros((L, batch, H, K, K), dtype=torch.float32,
+                                   device=device)
+        for name in ("tmix", "cmix"):
+            cache[name] = torch.zeros((L, batch, d), dtype=cfg.dtype,
+                                      device=device)
+        cache["len"] = 0
+        return cache
     if cfg.family == "zamba2":
         H, P, N, d_in = cfg.ssm_dims()
         n_kv = _shared_groups(cfg)[1]
@@ -145,16 +174,19 @@ def _attend(h, p, cfg, cache, i, positions, window):
 def decode_step(params, cfg: ModelConfig, cache, token):
     """One decode step.  token: (B, 1) int -> (logits (B,1,V), cache).
 
-    Updates ``cache`` in place (keys and values; zamba2's conv windows and
-    SSM states) and returns it with ``len`` advanced by one."""
+    Updates ``cache`` in place (keys and values; rwkv6's WKV, token-shift
+    and channel-mix states; zamba2's conv windows and SSM states) and
+    returns it with ``len`` advanced by one."""
     check_family(cfg)
     pos = cache["len"]
-    if pos >= cache["k"].shape[2]:
+    if "k" in cache and pos >= cache["k"].shape[2]:
         raise ValueError(f"the cache holds {cache['k'].shape[2]} positions; "
                          f"position {pos} does not fit")
     h = _embed(params, cfg, token)                       # (B, 1, d)
     positions = torch.full((1, 1), pos, device=h.device)
-    if cfg.family == "zamba2":
+    if cfg.family == "rwkv6":
+        h = _decode_rwkv6(params, cfg, cache, h)
+    elif cfg.family == "zamba2":
         h = _decode_zamba2(params, cfg, cache, h, positions)
     else:
         for i, (lp, win) in enumerate(zip(params["layers"],
@@ -164,6 +196,19 @@ def decode_step(params, cfg: ModelConfig, cache, token):
             h = h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
     cache["len"] = pos + 1
     return _logits(params, cfg, h), cache
+
+
+def _decode_rwkv6(params, cfg, cache, h):
+    """rwkv6's layers for one decode step: each advances its WKV,
+    token-shift and channel-mix states in place."""
+    h = h[:, 0]                                          # (B, d)
+    for i, lp in enumerate(params["layers"]):
+        h, tmix, cmix, wkv = rwkv6_decode_step(
+            h, cache["tmix"][i], cache["cmix"][i], cache["wkv"][i], lp, cfg)
+        cache["tmix"][i].copy_(tmix)
+        cache["cmix"][i].copy_(cmix)
+        cache["wkv"][i].copy_(wkv)
+    return h[:, None, :]
 
 
 def _decode_zamba2(params, cfg, cache, h, positions):

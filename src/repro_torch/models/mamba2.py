@@ -23,21 +23,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba2_ssd.ops import ssd
 from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import rms_norm, silu
 
 #: the chunked SSD that ``ssd`` runs on the CPU: the kernel's plain
 #: version, which adds the D * x skip in f32 and rounds once, as the
 #: reference's ``ssd_chunked`` does
 ssd_chunked = ssd_torch
-
-
-def silu(x):
-    """x * sigmoid(x) with the sigmoid written out, 1 / (1 + exp(-x)), and
-    every step rounded to x's dtype: what the reference's ``jax.nn.silu``
-    computes in bf16.  ``F.silu`` rounds once; in bf16 that alone moves the
-    logits of the 4-layer smoke model 0.1-0.2 from the reference's, beyond
-    its 5e-2 (the conv and the gate each take a silu in every layer)."""
-    return x * torch.reciprocal(torch.exp(-x) + 1)
 
 
 def _split_proj(z, cfg):
