@@ -19,7 +19,9 @@ Mamba-2's initial ranges), through ``prefill_fn`` and ``greedy_generate``.
 Each phase prints one JSON line:
 
   device           the card's name and power limit (``nvidia-smi``), versions
-  build            per kernel: build time and ptxas resource lines
+  build            per kernel: build time, ptxas resource lines, and the
+                   count of HGMMA (wgmma), HMMA (mma.sync) and FFMA
+                   instructions in each kernel's SASS (cuobjdump)
   kernel_vs_plain  cgra_exec per pair: kernel vs plain version, bit-exact at
                    B = 4096, 4 lanes vs the scalar reference simulator; the
                    hand-built edge-case table
@@ -29,7 +31,8 @@ Each phase prints one JSON line:
   breakdown        gemm on HyCUBE: run_batch(4096) split on the host clock,
                    device time by kernel and the device's idle share
                    (torch.profiler)
-  flash_attention  per case: the kernel vs its plain version (per element
+  flash_attention  per case (bf16: the tensor-core form; f32: the CUDA-core
+                   form): the kernel vs its plain version (per element
                    2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want| in bf16),
                    a planted fault (one KV tile dropped) that the bound
                    must catch, kernel, plain and SDPA ms, the bound
@@ -67,6 +70,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -105,11 +109,12 @@ FLASH_CASES = [
     ("f32-d64", 2, 512, 8, 2, 64, "float32", True, 0),
     ("zamba2-prefill", 2, 2048, 32, 32, 80, "bfloat16", True, 0),
 ]
-#: a float kernel (flash_attention, mamba2_ssd) against its plain version,
-#: per element |got - want| <= atol + rtol * |want|.  f32: the reference's
-#: 2e-3 (tests/test_kernels.py).  bf16: both round f32 values that agree to
-#: about 1e-6 once, so they differ by at most one bf16 ulp, 2^-7 |want| <
-#: 1e-2 |want|
+#: a float kernel (flash_attention, mamba2_ssd, rwkv6) against its plain
+#: version, per element |got - want| <= atol + rtol * |want|.  f32: the
+#: reference's 2e-3 (tests/test_kernels.py).  bf16: each kernel's f32 result
+#: agrees with the plain one's before the one rounding to bf16 (flash
+#: attention's to about 1e-5: its P enters P V as two bf16 terms, 16 bits),
+#: so the two differ by at most one bf16 ulp, 2^-7 |want| < 1e-2 |want|
 KERNEL_TOL = {"bfloat16": (2e-3, 1e-2), "float32": (2e-3, 2e-3)}
 #: the planted fault each case must be caught at: the kernel's last block of
 #: FAULT_ROWS query rows skips the first tile of FAULT_TILE keys it sees
@@ -259,9 +264,49 @@ def device_profile(fn, groups=None) -> dict:
     return out
 
 
-def build_all() -> None:
+#: the SASS opcodes the build lines count: wgmma, mma.sync, f32 FMA
+SASS_OPS = ("HGMMA", "HMMA", "FFMA")
+
+
+def kernel_name(symbol: str) -> str:
+    """A kernel's own name inside its mangled symbol: the shortest
+    lower-case identifier that follows a digit (a length prefix) and
+    contains "kernel"; the symbol itself if there is none."""
+    names = [m.group(1) for m in re.finditer(r"\d(?=([a-z][a-z0-9_]*))",
+                                              symbol)
+             if "kernel" in m.group(1)]
+    return min(names, key=len) if names else symbol
+
+
+def sass_counts(lib: Path):
+    """Per kernel of the library (``kernel_name``), the count of each of
+    SASS_OPS in ``cuobjdump -sass``, or "not available" where the toolkit
+    has no cuobjdump."""
+    from repro_torch.kernels.build import find_nvcc
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return "not available"
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        return "not available"
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = kernel_name(head.group(1))
+            counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
+            continue
+        op = re.search(r"\b(" + "|".join(SASS_OPS) + r")\b", line)
+        if op and name is not None:
+            counts[name][op.group(1)] += 1
+    return counts
+
+
+def build_all() -> dict:
     """Build every kernel library at once, one nvcc each, all started
-    together; one ``build`` line per kernel."""
+    together; one ``build`` line per kernel.  Returns each library's SASS
+    counts (``sass_counts``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.cgra_exec import ops as cgra_ops
@@ -276,14 +321,17 @@ def build_all() -> None:
 
     kernels = (("cgra_exec", cgra_ops), ("flash_attention", fa_ops),
                ("mamba2_ssd", ssd_ops), ("rwkv6", wkv_ops))
+    sass = {}
     with ThreadPoolExecutor(len(kernels)) as pool:
         futs = {name: pool.submit(timed, mod) for name, mod in kernels}
         for name, fut in futs.items():
             lib, seconds = fut.result()
             ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
                      .splitlines() if "registers" in ln or "spill" in ln]
+            sass[name] = sass_counts(lib)
             emit("build", kernel=name, seconds=round(seconds, 3),
-                 library=lib.name, ptxas=ptxas)
+                 library=lib.name, ptxas=ptxas, sass=sass[name])
+    return sass
 
 
 def cgra_phases(dev, rng) -> dict:
@@ -531,12 +579,22 @@ def dropped_tile(q, k, v, causal: bool, window: int):
                         v.float().repeat_interleave(G, dim=2)).to(q.dtype)
 
 
-def flash_phases(dev) -> dict:
+#: the two forms of the flash-attention kernel: (kernel name, source)
+FLASH_FORMS = {
+    "bfloat16": ("attn_kernel_wgmma", "src/repro_torch/kernels/"
+                 "flash_attention/csrc/flash_attention_wgmma.cu"),
+    "float32": ("attn_kernel", "src/repro_torch/kernels/flash_attention/"
+                "csrc/flash_attention.cu"),
+}
+
+
+def flash_phases(dev, sass) -> dict:
     """The flash-attention kernel against its plain version on every case,
     with the planted fault of ``dropped_tile`` held to the same bound (it
     must fail it), the kernel's time, the plain version's, SDPA's and the
     bound.  Returns the kernel's summary entry, less the main path's
-    launches."""
+    launches; it names both forms (``FLASH_FORMS``) with their time at the
+    prefill shape and their SASS counts (``sass``: the library's)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
@@ -570,17 +628,24 @@ def flash_phases(dev) -> dict:
             "tflop_s": flops / res["ms"] / 1e9}
         emit("flash_attention", **row)
     lead = rows["qwen3-8b-prefill"]
+    forms = {}
+    for dt, (kernel, source) in FLASH_FORMS.items():
+        row = rows["qwen3-8b-prefill" + ("" if dt == "bfloat16" else "-f32")]
+        forms[dt] = {"kernel": kernel, "source": source, "ms": row["ms"],
+                     "bound_ms": row["bound_ms"],
+                     "library_ms": row["library_ms"],
+                     "sass": (sass.get(kernel) if isinstance(sass, dict)
+                              else sass)}
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+        "source": FLASH_FORMS["bfloat16"][1],
         "replaces": "src/repro/kernels/flash_attention/kernel.py:29",
         "launches": None, "max_abs_err": max_err,
         "ms": lead["ms"], "plain_ms": lead["plain_ms"],
         "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
         "library_ms": lead["library_ms"],
         "shape": "qwen3-8b prefill attention: B=2, S=2048, H=32, KV=8, "
-                 "D=128, bf16, causal"}
+                 "D=128, bf16, causal", "forms": forms}
 
 
 def ssd_bound(B, S, H, P, N, dtype):
@@ -1078,9 +1143,9 @@ def main(argv=None) -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
-    build_all()
+    sass = build_all()
     cgra = cgra_phases(dev, np.random.default_rng(args.seed))
-    flash = flash_phases(dev)
+    flash = flash_phases(dev, sass["flash_attention"])
     ssd = ssd_phases(dev)
     wkv = wkv_phases(dev)
     launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0}

@@ -1,7 +1,9 @@
 // flash_attention: causal / sliding-window / full GQA attention with an
 // online softmax.  CUDA C++ for sm_90a, built with nvcc into a shared library
 // with a plain C entry point (repro_torch/kernels/build.py) and bound with
-// ctypes (repro_torch/kernels/flash_attention/ops.py).
+// ctypes (repro_torch/kernels/flash_attention/ops.py).  The entry point
+// sends bf16 calls to the tensor-core form (flash_attention_wgmma.cu) and
+// f32 calls to the CUDA-core form below; neither falls back to the other.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // _attn_kernel (wrapper flash_attention).  It computes the same function:
@@ -16,17 +18,14 @@
 // corr = exp(-1e30 - m) = 0 wipes out); the output is acc / max(l, 1e-30)
 // in q's dtype (f32 or bf16, rounded to nearest even).
 //
-// What bounds it on an H100 SXM (NVIDIA data sheet): operations, at the
-// shapes the serving path gives it.  4 * D flops per (query, key) pair that
-// the mask keeps (2 * B * H * S^2 * D for causal self-attention) over
-// 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32 without them), against
-// q, k, v read once and the output written once over 3.35 TB/s: at
-// B = 2, S = 2048, H = 32, KV = 8, D = 128 in bf16, 69 us of operations and
-// 25 us of bytes.
+// The f32 form.  What bounds it on an H100 SXM (NVIDIA data sheet):
+// operations, 4 * D flops per (query, key) pair that the mask keeps over
+// 67 TFLOP/s (f32 without the tensor cores, which have no f32 product; TF32
+// keeps 10 bits, too few for the f32 bound of 2e-3 + 2e-3 |want|): at
+// B = 2, S = 2048, H = 32, KV = 8, D = 128, 1.03 ms.
 //
-// What the design does about it, so far: this first form is simple and
-// right, and leaves the tensor cores unused (mma.sync / wgmma and TMA are
-// later work).  One block of 128 threads owns kBQ = 64 query rows of one
+// What the design does about it: it is simple and right, on the CUDA
+// cores.  One block of 128 threads owns kBQ = 64 query rows of one
 // (batch, head) and walks the KV tiles of kBK = 32 keys that its rows can
 // see: tiles after the causal diagonal and tiles before the window are
 // skipped, which halves the causal work (a skipped tile contributes exactly
@@ -34,18 +33,23 @@
 // when window > 0 and Sq - Skv >= window) gets the mean of V over every key,
 // padding included, from the TPU kernel, and something else here; ops.py
 // refuses such calls, and the serving path never makes one.  The query tile
-// (scaled, f32, transposed) stays in shared memory for the whole walk; each
-// KV tile is staged into shared memory as f32, K transposed so that a
+// (scaled, transposed) stays in shared memory for the whole walk; each
+// KV tile is staged into shared memory, K transposed so that a
 // thread's four keys are one float4; each thread holds a 4 x 4 block of
 // scores and a 4 x (D/8) block of the output accumulator in registers, the
 // row statistics m and l for its four rows, and reduces them across the
 // eight threads of a row with warp shuffles.  Blocks with the longest causal
 // walk are launched first.  D is padded to DP, a multiple of 32 up to 256,
 // with zeros, which change no score.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+// the bf16 form (flash_attention_wgmma.cu)
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                 void* o, int B, int Sq, int Skv, int H,
+                                 int KV, int D, int causal, int window,
+                                 float scale, cudaStream_t s);
 
 namespace {
 
@@ -56,19 +60,6 @@ constexpr int kLQ = kBQ + 4;      // row stride of the transposed Q and P tiles
 constexpr int kLK = kBK + 4;      // row stride of the transposed K tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-    return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);   // round to nearest even, as torch's cast
-}
-
 template <int DP>
 constexpr size_t smem_floats() {
     return static_cast<size_t>(DP) * kLQ      // Qt  (DP, kLQ)
@@ -77,10 +68,10 @@ constexpr size_t smem_floats() {
            + static_cast<size_t>(kBK) * kLQ;  // Pt  (kBK, kLQ)
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
+attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
             int H, int KV, int D, int causal, int window, float scale) {
     extern __shared__ float4 smem4[];
     float* Qt = reinterpret_cast<float*>(smem4);
@@ -98,21 +89,21 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q0 = qb * kBQ;
     const size_t q_stride = static_cast<size_t>(H) * D;
     const size_t kv_stride = static_cast<size_t>(KV) * D;
-    const T* qg = q + static_cast<size_t>(b) * Sq * q_stride
-                  + static_cast<size_t>(h) * D;
-    T* og = o + static_cast<size_t>(b) * Sq * q_stride
-            + static_cast<size_t>(h) * D;
-    const T* kg = k + static_cast<size_t>(b) * Skv * kv_stride
-                  + static_cast<size_t>(kvh) * D;
-    const T* vg = v + static_cast<size_t>(b) * Skv * kv_stride
-                  + static_cast<size_t>(kvh) * D;
+    const float* qg = q + static_cast<size_t>(b) * Sq * q_stride
+                      + static_cast<size_t>(h) * D;
+    float* og = o + static_cast<size_t>(b) * Sq * q_stride
+                + static_cast<size_t>(h) * D;
+    const float* kg = k + static_cast<size_t>(b) * Skv * kv_stride
+                      + static_cast<size_t>(kvh) * D;
+    const float* vg = v + static_cast<size_t>(b) * Skv * kv_stride
+                      + static_cast<size_t>(kvh) * D;
 
-    // the query tile: cast to f32, then scaled, as the TPU kernel does
+    // the query tile, scaled, as the TPU kernel does
     for (int i = tid; i < kBQ * DP; i += kThreads) {
         const int r = i / DP, d = i % DP;
         float x = 0.f;
         if (q0 + r < Sq && d < D)
-            x = to_f32(qg[static_cast<size_t>(q0 + r) * q_stride + d]) * scale;
+            x = qg[static_cast<size_t>(q0 + r) * q_stride + d] * scale;
         Qt[d * kLQ + r] = x;
     }
 
@@ -145,8 +136,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             float kx = 0.f, vx = 0.f;
             if (k0 + c < Skv && d < D) {
                 const size_t off = static_cast<size_t>(k0 + c) * kv_stride + d;
-                kx = to_f32(kg[off]);
-                vx = to_f32(vg[off]);
+                kx = kg[off];
+                vx = vg[off];
             }
             Kt[d * kLK + c] = kx;
             Vs[c * DP + d] = vx;
@@ -249,50 +240,51 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int d = n * 32 + tx * 4 + e;
                 if (d < D)
                     og[static_cast<size_t>(r) * q_stride + d] =
-                        from_f32<T>(acc[i][n * 4 + e] / den);
+                        acc[i][n * 4 + e] / den;
             }
     }
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int KV, int D, int causal, int window,
            float scale, cudaStream_t stream) {
     const size_t smem = sizeof(float) * smem_floats<DP>();
     cudaError_t err = cudaFuncSetAttribute(
-        attn_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-    attn_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KV, D,
-        causal, window, scale);
+    attn_kernel<DP><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
+        D, causal, window, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int Sq, int Skv, int H, int KV, int D, int causal, int window,
              float scale, cudaStream_t s) {
     switch ((D + 31) / 32) {
-        case 1: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 2: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 3: return launch<T, 96>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 4: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 5: return launch<T, 160>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 6: return launch<T, 192>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 7: return launch<T, 224>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 8: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 1: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 2: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 3: return launch<96>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 4: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 5: return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 6: return launch<192>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 7: return launch<224>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 8: return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  All tensors contiguous, on the device
-// of the current context; the output is written in q's dtype.  Returns the
-// CUDA error of the launch (0 when it was accepted).
+// dtype: 0 = float32 (the form above), 1 = bfloat16 (the tensor-core form).
+// All tensors contiguous, on the device of the current context; the output
+// is written in q's dtype.  Returns the CUDA error of the launch (0 when it
+// was accepted), or -(a CUresult) when the bf16 form cannot make a tensor
+// map.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int B, int Sq, int Skv, int H, int KV,
@@ -300,10 +292,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       float scale, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return dispatch<float>(q, k, v, o, B, Sq, Skv, H, KV, D, causal,
-                               window, scale, s);
+        return dispatch(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window,
+                        scale, s);
     if (dtype == 1)
-        return dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KV, D,
-                                       causal, window, scale, s);
+        return flash_attention_wgmma_launch(q, k, v, o, B, Sq, Skv, H, KV, D,
+                                            causal, window, scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,10 @@
 """Public wrapper of the hand-written flash-attention kernel.
 
 ``flash_attention(q, k, v, causal=..., window=...)`` launches the kernel
-(``csrc/flash_attention.cu``) when the tensors lie on a CUDA device and
-raises if it cannot; only CPU tensors go to the plain PyTorch version
+when the tensors lie on a CUDA device and raises if it cannot: bf16 runs
+the tensor-core form (``csrc/flash_attention_wgmma.cu``: wgmma and TMA),
+f32 the CUDA-core form (``csrc/flash_attention.cu``, whose C entry point
+picks the form by dtype).  Only CPU tensors go to the plain PyTorch version
 (``ref.flash_attention_torch``).  Every launch adds one to the module's
 launch count (``launches()``), so a run can show that it went through the
 kernel.
@@ -17,15 +19,21 @@ from pathlib import Path
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_torch
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu")
 #: the dtypes the kernel takes, by the code its C entry point reads
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the widest head the kernel's templates cover (D is padded to 32s)
+#: the widest head the kernel's templates cover (D is padded to 32s in f32,
+#: 16s in bf16)
 MAX_HEAD_DIM = 256
+#: the bf16 form's TMA reads rows of 16-byte multiples from 16-byte
+#: aligned tensors: a bf16 head is padded with zeros to a multiple of this
+BF16_HEAD_ALIGN = 8
 
 _launches = 0
 _count_lock = threading.Lock()
@@ -120,15 +128,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head width {D} > {MAX_HEAD_DIM}")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the grid's 65535 rows")
+    Dk = D
+    if q.dtype == torch.bfloat16:
+        if D % BF16_HEAD_ALIGN:
+            # zero columns change no score and come out as zero columns
+            Dk = D + (-D % BF16_HEAD_ALIGN)
+            q, k, v = (F.pad(t, (0, Dk - D)) for t in (q, k, v))
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the bf16 kernel takes 16-byte aligned q, k, v")
     out = torch.empty_like(q)
     fn = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 DTYPES[q.dtype], B, Sq, Skv, H, KV, D, int(bool(causal)),
+                 DTYPES[q.dtype], B, Sq, Skv, H, KV, Dk, int(bool(causal)),
                  int(window), 1.0 / math.sqrt(D), stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {-err}; 1 also when libcuda has no "
+                           f"such entry point)")
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     with _count_lock:
         _launches += 1
-    return out
+    return out if Dk == D else out[..., :D].contiguous()

@@ -4,13 +4,17 @@ On the CPU: the plain versions (``flash_attention_torch``, the kernel's
 blocked online softmax, and ``attention_ref``) against the reference's
 Pallas kernel in interpret mode and its oracle, on the same inputs made
 with numpy, over the sweep of ``tests/test_kernels.py`` in f32 and bf16
-(tolerances 2e-3 and 5e-2, the reference's own).  On a card (``cuda``
-marker, skipped without one): the hand-written kernel against its plain
-version; those tests import nothing of JAX, so they also run where only
-the port is installed:
+(tolerances 2e-3 and 5e-2, the reference's own), and an emulation of the
+bf16 kernel's rounding against the bound the kernel is held to.  On a card
+(``cuda`` marker, skipped without one): the hand-written kernel (bf16: the
+tensor-core form; f32: the CUDA-core form) against its plain version;
+those tests import nothing of JAX, so they also run where only the port is
+installed:
 
     python -m pytest -q -m cuda tests/test_torch_flash_attention.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -21,9 +25,11 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
 from repro_torch.models.layers import GLOBAL_WINDOW, blockwise_attention
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
-#: the kernel against its plain version, (atol, rtol): both round f32
-#: values that agree to about 1e-6, so in bf16 they differ by at most one
-#: ulp, 2^-7 |want| < 1e-2 |want| (chip_smoke.py holds the same bound)
+#: the kernel against its plain version, (atol, rtol).  f32: the
+#: reference's 2e-3.  bf16: the kernel's f32 result agrees with the plain
+#: one to about 1e-5 (P enters P V as two bf16 terms, 16 bits), so the two
+#: bf16 outputs differ by at most one ulp, 2^-7 |want| < 1e-2 |want|
+#: (chip_smoke.py holds the same bound)
 KERNEL_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (2e-3, 1e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -114,6 +120,55 @@ def test_kernel_window_convention_matches_blockwise(causal, window):
     _close(got, want, torch.float32)
 
 
+def kernel_rounding(q, k, v, *, causal=True, bk=128):
+    """The bf16 tensor-core form's arithmetic on the CPU: scores (q . k) in
+    f32, scaled into log2 units, an online softmax over tiles of ``bk`` keys
+    in exp2, P split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), each
+    multiplied by V with f32 sums, l summed from the f32 P, the output
+    rounded once to bf16."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    qf = q.float().transpose(1, 2)                          # (B, H, S, D)
+    kf, vf = (t.float().repeat_interleave(G, dim=2).transpose(1, 2)
+              for t in (k, v))
+    c = torch.tensor((1.0 / math.sqrt(D)) * math.log2(math.e),
+                     dtype=torch.float32)
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        kp = torch.arange(k0, min(k0 + bk, S))[None, :]
+        keep = qp >= kp if causal else torch.ones((S, kp.shape[1]), dtype=torch.bool)
+        s = (qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)) * c
+        s = torch.where(keep, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        vb = vf[:, :, k0:k0 + bk]
+        acc = acc * corr + hi @ vb + lo @ vb
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("D", [80, 128])
+def test_kernel_rounding_meets_the_kernel_bound(D):
+    """Why the bf16 kernel splits P: with P_hi + P_lo (16 bits of P) its
+    arithmetic stays within ``KERNEL_TOL[bf16]`` of the plain version at
+    the main path's length, causal, in every element (a P rounded once to
+    bf16 leaves rare outputs outside it at the main path's full shape)."""
+    q, k, v = _inputs((1, 2048, 2048, 4, 2, D), torch.bfloat16, seed=13)
+    got = kernel_rounding(q, k, v, causal=True)
+    want = flash_attention_torch(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=atol, rtol=rtol)
+
+
 def test_wrapper_runs_plain_version_on_cpu_and_counts_nothing():
     q, k, v = _inputs((1, 70, 70, 4, 2, 32), torch.bfloat16, seed=5)
     before = ops.launches()
@@ -171,11 +226,18 @@ def card():
 
 
 CARD_CASES = SWEEP + [
+    ((2, 2048, 2048, 32, 8, 128), (True, 0)),   # qwen3-8b's prefill shape
+    ((1, 127, 127, 4, 2, 128), (True, 0)),      # lengths at a 128-row tile
+    ((1, 128, 128, 4, 2, 128), (True, 0)),
+    ((1, 129, 129, 4, 2, 128), (True, 0)),
+    ((1, 255, 255, 4, 2, 128), (True, 0)),
+    ((1, 300, 300, 4, 2, 128), (True, 100)),    # window across a tile edge
     ((2, 300, 300, 32, 8, 128), (True, 0)),     # qwen3-8b heads, ragged
     ((1, 257, 257, 32, 8, 80), (True, 96)),     # danube-1.8b's head width
     ((1, 130, 130, 32, 8, 120), (True, 0)),     # danube-3-4b's head width
     ((1, 65, 65, 4, 2, 16), (False, 20)),       # smoke width, non-causal window
     ((1, 100, 100, 2, 1, 256), (True, 0)),      # the widest head
+    ((1, 70, 70, 4, 2, 20), (True, 0)),         # bf16 pads it to 24 for TMA
 ]
 
 
@@ -195,6 +257,18 @@ def test_kernel_matches_plain_version(card, case, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_rejects_a_misaligned_view(card):
+    """The bf16 form's TMA reads from 16-byte aligned tensors: a contiguous
+    view that starts off that alignment raises."""
+    q, k, v = _inputs((1, 32, 32, 4, 4, 32), torch.bfloat16, device=card)
+    shifted = torch.empty(q.numel() + 4, dtype=q.dtype, device=card)[4:]
+    shifted = shifted.view(q.shape).copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(shifted, k, v)
 
 
 @pytest.mark.cuda
