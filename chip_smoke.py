@@ -36,8 +36,9 @@ Each phase prints one JSON line:
                    2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want| in bf16),
                    a planted fault (one KV tile dropped) that the bound
                    must catch, kernel, plain and SDPA ms, the bound
-  ssd              per case: the Mamba-2 SSD kernel vs its plain version
-                   (the same per-element bounds) on steps whose state
+  ssd              per case (bf16: the tensor-core form; f32: the
+                   CUDA-core form): the Mamba-2 SSD kernel vs its plain
+                   version (the same per-element bounds) on steps whose state
                    carries across chunks, two planted faults (the state
                    dropped at one chunk boundary; the carried state's decay
                    left out of every update) that the bound must catch,
@@ -579,6 +580,27 @@ def dropped_tile(q, k, v, causal: bool, window: int):
                         v.float().repeat_interleave(G, dim=2)).to(q.dtype)
 
 
+def kernel_forms(table, rows, case: str, sass) -> dict:
+    """Per dtype of ``table`` (dtype -> (kernel name, source)): the form's
+    kernel, source, ms, bound and library ms at ``case`` (``case``-f32 for
+    f32) from ``rows``, and its SASS counts from ``sass`` (the library's:
+    kernel name -> counts, or "not available").  Checks that the bf16 form
+    runs on the tensor cores (HGMMA in its SASS) where SASS is known."""
+    forms = {}
+    for dt, (kernel, source) in table.items():
+        row = rows[case + ("" if dt == "bfloat16" else "-f32")]
+        forms[dt] = {"kernel": kernel, "source": source, "ms": row["ms"],
+                     "bound_ms": row["bound_ms"],
+                     "library_ms": row["library_ms"],
+                     "sass": (sass.get(kernel) if isinstance(sass, dict)
+                              else sass)}
+    kernel, counts = table["bfloat16"][0], forms["bfloat16"]["sass"]
+    if isinstance(sass, dict):
+        check(bool(counts) and counts["HGMMA"] > 0,
+              f"{kernel} has no HGMMA in its SASS: {counts}")
+    return forms
+
+
 #: the two forms of the flash-attention kernel: (kernel name, source)
 FLASH_FORMS = {
     "bfloat16": ("attn_kernel_wgmma", "src/repro_torch/kernels/"
@@ -593,8 +615,7 @@ def flash_phases(dev, sass) -> dict:
     with the planted fault of ``dropped_tile`` held to the same bound (it
     must fail it), the kernel's time, the plain version's, SDPA's and the
     bound.  Returns the kernel's summary entry, less the main path's
-    launches; it names both forms (``FLASH_FORMS``) with their time at the
-    prefill shape and their SASS counts (``sass``: the library's)."""
+    launches; it names both forms (``FLASH_FORMS``, ``kernel_forms``)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
@@ -628,14 +649,7 @@ def flash_phases(dev, sass) -> dict:
             "tflop_s": flops / res["ms"] / 1e9}
         emit("flash_attention", **row)
     lead = rows["qwen3-8b-prefill"]
-    forms = {}
-    for dt, (kernel, source) in FLASH_FORMS.items():
-        row = rows["qwen3-8b-prefill" + ("" if dt == "bfloat16" else "-f32")]
-        forms[dt] = {"kernel": kernel, "source": source, "ms": row["ms"],
-                     "bound_ms": row["bound_ms"],
-                     "library_ms": row["library_ms"],
-                     "sass": (sass.get(kernel) if isinstance(sass, dict)
-                              else sass)}
+    forms = kernel_forms(FLASH_FORMS, rows, "qwen3-8b-prefill", sass)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": FLASH_FORMS["bfloat16"][1],
@@ -654,8 +668,9 @@ def ssd_bound(B, S, H, P, N, dtype):
     the heads), and per head C S^T, W x over the causal pairs, and the
     state update, at 2 flops a multiply-add over the peak rate of
     ``dtype``; against x, dt, B, C, A_log, D read once and y written once
-    over HBM's rate.  Also the flops the kernel issues (four full L^3
-    products per (batch, head, chunk))."""
+    over HBM's rate.  Also the flops the kernel issues per (batch, head,
+    chunk): seven full L^3 products in the bf16 form (W, S and kdec x
+    split into bf16 hi + lo), four in the f32 form."""
     from repro_torch.kernels.mamba2_ssd.ops import CHUNK
     item = 2 if dtype == "bfloat16" else 4
     lens = [min(CHUNK, S - s0) for s0 in range(0, S, CHUNK)]
@@ -663,8 +678,11 @@ def ssd_bound(B, S, H, P, N, dtype):
                      + H * (2 * ln * P * N + 2 * P * ln * (ln + 1) // 2
                             + 2 * ln * P * N)) for ln in lens)
     L = CHUNK
-    kernel_flops = len(lens) * B * H * 2 * (L * L * N + 2 * L * P * N
-                                            + L * L * P)
+    if dtype == "bfloat16":
+        products = L * L * N + 2 * (L * P * N + L * L * P + P * L * N)
+    else:
+        products = L * L * N + 2 * L * P * N + L * L * P
+    kernel_flops = len(lens) * B * H * 2 * products
     nbytes = (2 * item * B * S * H * P + 4 * B * S * H + 2 * item * B * S * N
               + 2 * 4 * H)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
@@ -736,13 +754,22 @@ def undecayed(run, S: int, chunk: int):
     return torch.cat(outs, dim=1)
 
 
-def ssd_phases(dev) -> dict:
+#: the two forms of the SSD kernel: (kernel name, source)
+SSD_FORMS = {
+    "bfloat16": ("ssd_kernel_wgmma", "src/repro_torch/kernels/mamba2_ssd/"
+                 "csrc/mamba2_ssd_wgmma.cu"),
+    "float32": ("ssd_kernel", "src/repro_torch/kernels/mamba2_ssd/csrc/"
+                "mamba2_ssd.cu"),
+}
+
+
+def ssd_phases(dev, sass) -> dict:
     """The Mamba-2 SSD kernel against its plain version on every case, with
     the planted faults ``dropped_state`` (at the middle chunk boundary)
     and ``undecayed_state`` (``undecayed``) held to the same bound (each
-    must fail it), the
-    kernel's time, the plain version's and the bound.  Returns the kernel's
-    summary entry, less the main path's launches."""
+    must fail it), the kernel's time, the plain version's and the bound.
+    Returns the kernel's summary entry, less the main path's launches; it
+    names both forms (``SSD_FORMS``, ``kernel_forms``)."""
     import torch
 
     from repro_torch.kernels.mamba2_ssd import ops
@@ -774,16 +801,17 @@ def ssd_phases(dev) -> dict:
             "gb_s": nbytes / res["ms"] / 1e6}
         emit("ssd", **row)
     lead = rows["zamba2-prefill"]
+    forms = kernel_forms(SSD_FORMS, rows, "zamba2-prefill", sass)
     return {
         "name": "mamba2_ssd", "route": "cuda",
-        "source": "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
+        "source": SSD_FORMS["bfloat16"][1],
         "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:25",
         "launches": None, "max_abs_err": max_err,
         "ms": lead["ms"], "plain_ms": lead["plain_ms"],
         "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
         "library_ms": None,
         "shape": "zamba2-2.7b prefill SSD: B=2, S=2048, H=80, P=64, N=64, "
-                 "bf16 x/B/C, f32 dt"}
+                 "bf16 x/B/C, f32 dt", "forms": forms}
 
 
 def wkv_bound(B, S, H, K, dtype):
@@ -1146,7 +1174,7 @@ def main(argv=None) -> int:
     sass = build_all()
     cgra = cgra_phases(dev, np.random.default_rng(args.seed))
     flash = flash_phases(dev, sass["flash_attention"])
-    ssd = ssd_phases(dev)
+    ssd = ssd_phases(dev, sass["mamba2_ssd"])
     wkv = wkv_phases(dev)
     launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0}
     for arch in LM_ARCHS:

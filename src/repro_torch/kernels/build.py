@@ -2,7 +2,10 @@
 
 Each kernel's sources (``kernels/<name>/csrc/*.cu``) are compiled by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C entry point, which the
-kernel's wrapper loads with ``ctypes``.  No PyTorch header is included, so a
+kernel's wrapper loads with ``ctypes``.  A kernel's sources may list headers
+(``*.cuh``, such as the shared ``kernels/csrc/hopper.cuh``): they are hashed
+with the rest, so an edited header rebuilds the library, and not compiled
+on their own.  No PyTorch header is included, so a
 build takes seconds, not minutes.
 
 The library lands in ``artifacts/repro_torch/build/`` of the source checkout
@@ -87,7 +90,8 @@ def build(name: str, sources: Sequence[Path],
             return out
         tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
         cmd = [find_nvcc(), *NVCC_FLAGS, *_define_flags(defines),
-               "-o", str(tmp), *[str(s) for s in sources]]
+               "-o", str(tmp),
+               *[str(s) for s in sources if Path(s).suffix == ".cu"]]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=600)

@@ -52,18 +52,16 @@
 //   the thread's share of l in f32, l reduced once at the end.
 // - D is padded to DP, a multiple of 16 (the k-step), up to 256; P V's
 //   output columns go in wgmma pieces of 128, 64 and the rest.
-#include <cuda.h>            // CUtensorMap and its enums (types only: the
-                             // encoder is fetched through the runtime)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "../../csrc/hopper.cuh"   // mbarriers, TMA, descriptors, wgmma
 
 #include <cstdint>
 
 namespace {
 
+using namespace hopper;
+
 constexpr int kRows = 128;        // query rows per block: two warpgroups
 constexpr int kThreads = 256;
-constexpr int kRowBytes = 128;    // one swizzled row: 64 bf16 columns
 constexpr float kNegInf = -1e30f;
 
 template <int DP>
@@ -76,212 +74,6 @@ struct Tiles {
     static constexpr int kSmem = kQBytes + 4 * kKVBytes + 64 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-                 "r"(1));
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-        "r"(bytes)
-        : "memory");
-}
-
-// waits for the phase of the given parity; a load that never lands traps
-// (a launch error) after some seconds rather than hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done, spins = 0;
-    do {
-        if (++spins == (1u << 26)) __trap();
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// one box of the 4-D map (D, heads, S, B) into shared memory at dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int head,
-                                         int row, int b) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(head),
-        "r"(row), "r"(b)
-        : "memory");
-}
-
-// a wgmma shared-memory descriptor, 128-byte swizzle; lbo and sbo in bytes
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-           | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-           | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-           | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// pin registers that wgmma reads or writes on this side of a fence or wait
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t* r) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// D (64 x N, f32) += A (64 x 16, shared, K-major) B (16 x N, shared,
-// K-major): one warpgroup; d holds the thread's N / 2 accumulators
-template <int N>
-__device__ void wgmma_ss(float* d, uint64_t a, uint64_t b);
-// D (64 x N, f32) += A (64 x 16, registers) B (16 x N, shared, MN-major)
-template <int N>
-__device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
-
-// The operand lists are written out: wgmma names every register.
-
-template <> __device__ __forceinline__ void
-wgmma_ss<64>(float* d, uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
-}
-
-template <> __device__ __forceinline__ void
-wgmma_ss<128>(float* d, uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
-}
-
-template <> __device__ __forceinline__ void
-wgmma_rs<16>(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <> __device__ __forceinline__ void
-wgmma_rs<32>(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <> __device__ __forceinline__ void
-wgmma_rs<48>(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23"
-        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <> __device__ __forceinline__ void
-wgmma_rs<64>(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <> __device__ __forceinline__ void
-wgmma_rs<128>(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 // O += P V over one 16-key step: the DP output columns in wgmma pieces of
 // 128 (two swizzled column boxes), 64 and the rest (16, 32 or 48), each
 // starting at a box; v is the step's first key row in box 0
@@ -292,11 +84,11 @@ __device__ __forceinline__ void pv_step(float* o, const uint32_t* a,
     constexpr int n64 = DP / 128 * 128, nr = DP / 64 * 64;
 #pragma unroll
     for (int n0 = 0; n0 < n64; n0 += 128)
-        wgmma_rs<128>(o + n0 / 2, a, desc(v + n0 / 64 * kBox, kBox, 1024));
+        wgmma_rs<128, 1>(o + n0 / 2, a, desc(v + n0 / 64 * kBox, kBox, 1024));
     if constexpr (nr > n64)
-        wgmma_rs<64>(o + n64 / 2, a, desc(v + n64 / 64 * kBox, kBox, 1024));
+        wgmma_rs<64, 1>(o + n64 / 2, a, desc(v + n64 / 64 * kBox, kBox, 1024));
     if constexpr (DP > nr)
-        wgmma_rs<DP - nr>(o + nr / 2, a,
+        wgmma_rs<DP - nr, 1>(o + nr / 2, a,
                           desc(v + nr / 64 * kBox, kBox, 1024));
 }
 
@@ -354,7 +146,7 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
     if (tid == 0) {
         for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        mbar_init_fence();
         mbar_expect(bar, T::kQBytes);
 #pragma unroll
         for (int c = 0; c < T::kChunks; ++c)
@@ -392,7 +184,7 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                     + wg * 64 * kRowBytes + kc;
                 const uint32_t ka = sK + s * T::kKVBytes
                                     + kk / 4 * (kBK * kRowBytes) + kc;
-                wgmma_ss<kBK>(sc, desc(qa, 16, 1024), desc(ka, 16, 1024));
+                wgmma_ss<kBK, 0, 0>(sc, desc(qa, 16, 1024), desc(ka, 16, 1024));
             }
             wgmma_commit();
             wgmma_wait();
@@ -451,13 +243,7 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 for (int f = 0; f < 4; ++f) {
                     // fragment f: keys + 8 (f / 2), row + 8 (f % 2)
                     const int j = 4 * (2 * kk + f / 2) + 2 * (f % 2);
-                    const __nv_bfloat162 ph =
-                        __floats2bfloat162_rn(sc[j], sc[j + 1]);
-                    const float2 pf = __bfloat1622float2(ph);
-                    const __nv_bfloat162 pl = __floats2bfloat162_rn(
-                        sc[j] - pf.x, sc[j + 1] - pf.y);
-                    hi[kk][f] = *reinterpret_cast<const uint32_t*>(&ph);
-                    lo[kk][f] = *reinterpret_cast<const uint32_t*>(&pl);
+                    split2(sc[j], sc[j + 1], hi[kk][f], lo[kk][f]);
                 }
 
             // O += P_hi V + P_lo V
@@ -505,38 +291,11 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, fetched through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(p)
-                   : nullptr;
-    }();
-    return fn;
-}
-
 // the map of a (B, S, heads, D) bf16 tensor as (D, heads, S, B), boxes of
 // 64 columns x rows rows of one head, 128-byte swizzled, zero-filled past
 // the edges; 0 or -(the CUresult) (-1 without the encoder)
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
              int D, int rows) {
-    const EncodeTiled fn = encode_tiled();
-    if (fn == nullptr) return -1;
     const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                                 static_cast<cuuint64_t>(heads),
@@ -544,14 +303,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
                                 static_cast<cuuint64_t>(B)};
     const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
     const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-    const cuuint32_t step[4] = {1, 1, 1, 1};
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                          const_cast<void*>(ptr), dims, strides, box, step,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+    return make_map_bf16(map, ptr, 4, dims, strides, box);
 }
 
 template <int DP>

@@ -25,7 +25,9 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu")
+#: the two forms' sources and the Hopper header the bf16 form includes
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu",
+           _CSRC.parents[1] / "csrc" / "hopper.cuh")
 #: the dtypes the kernel takes, by the code its C entry point reads
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the widest head the kernel's templates cover (D is padded to 32s in f32,

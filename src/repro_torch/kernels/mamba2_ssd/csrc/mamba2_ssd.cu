@@ -1,7 +1,9 @@
 // mamba2_ssd: the chunked Mamba-2 SSD (state-space dual) scan.  CUDA C++
 // for sm_90a, built with nvcc into a shared library with a plain C entry
 // point (repro_torch/kernels/build.py) and bound with ctypes
-// (repro_torch/kernels/mamba2_ssd/ops.py).
+// (repro_torch/kernels/mamba2_ssd/ops.py).  The entry point sends bf16 calls
+// to the tensor-core form (mamba2_ssd_wgmma.cu) and f32 calls to the
+// CUDA-core form below; neither falls back to the other.
 //
 // Replaces the TPU kernel src/repro/kernels/mamba2_ssd/kernel.py::_ssd_kernel
 // (wrapper ssd).  It computes the same function: x (B, S, H, P), dt (B, S, H)
@@ -21,14 +23,14 @@
 // in the kernel (zeros staged past the end, which add nothing since dt = 0
 // there, and no row written past S), not padded on the host.
 //
-// What bounds it on an H100 SXM (NVIDIA data sheet): bytes.  At zamba2's
-// prefill (B = 2, S = 2048, H = 80, P = N = 64, bf16) x and y are 42 MB each,
-// dt, B and C 2.4 MB: 86 MB over 3.35 TB/s is 26 us, against about 8 GFLOP
-// (C B^T shared by the heads, the causal half of the intra products) over
-// 989 TFLOP/s, 8 us.
+// The f32 form.  What bounds it on an H100 SXM (NVIDIA data sheet):
+// operations.  At zamba2's prefill shape (B = 2, S = 2048, H = 80,
+// P = N = 64) in f32 the least products, 6.75 GFLOP (C B^T shared by the
+// heads, the causal half of the intra products), take 0.10 ms at 67 TFLOP/s
+// without the tensor cores (TF32 keeps 10 bits, too few for the f32 bound
+// of 2e-3 + 2e-3 |want|), against 0.05 ms for its 170 MB at 3.35 TB/s.
 //
-// What the design does about it, so far: this first form is simple and
-// right, and leaves the tensor cores unused (wgmma and TMA are later work).
+// What the design does about it: it is simple and right, on the CUDA cores.
 // One block of 256 threads owns one (batch, head) and walks its chunks in
 // order, the counterpart of the TPU kernel's sequential chunk axis with the
 // state in VMEM: here S stays in shared memory for the whole sequence.  Per
@@ -42,10 +44,15 @@
 // shared memory a block (over the 48 KB default, so the launch opts in), two
 // blocks to an SM.  The kernel issues four full 64^3 products per (b, h,
 // chunk), about 10.7 GFLOP at the prefill's shape, on the CUDA cores.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+// the bf16 form (mamba2_ssd_wgmma.cu)
+int mamba2_ssd_wgmma_launch(const void* x, const void* dt, const void* A_log,
+                            const void* Bm, const void* Cm, const void* D,
+                            void* y, int B, int S, int H, int P, int N,
+                            const long long* st, cudaStream_t stream);
 
 namespace {
 
@@ -57,25 +64,11 @@ constexpr size_t kTile = static_cast<size_t>(kL) * kLD;
 // Xs, Bs, Cs, Ws (L x kLD), Ss (kMaxPN x kLD), then dt, cum, exp(cum), kdec
 constexpr size_t kSmemBytes = (5 * kTile + 4 * kL) * sizeof(float);
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-    return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);   // round to nearest even, as torch's cast
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ A_log, const T* __restrict__ Bm,
-           const T* __restrict__ Cm, const float* __restrict__ Dv,
-           T* __restrict__ y, int S, int H, int P, int N,
+ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ A_log, const float* __restrict__ Bm,
+           const float* __restrict__ Cm, const float* __restrict__ Dv,
+           float* __restrict__ y, int S, int H, int P, int N,
            long long sxb, long long sxs, long long sxh,
            long long sdb, long long sds, long long sdh,
            long long sbb, long long sbs, long long scb, long long scs) {
@@ -97,12 +90,12 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     const int tx = tid & 15;          // columns tx, tx + 16, tx + 32, tx + 48
     const float A = expf(A_log[h]);
     const float Dh = Dv[h];
-    const T* xg = x + b * sxb + h * sxh;
+    const float* xg = x + b * sxb + h * sxh;
     const float* dg = dt + b * sdb + h * sdh;
-    const T* bg = Bm + b * sbb;
-    const T* cg = Cm + b * scb;
+    const float* bg = Bm + b * sbb;
+    const float* cg = Cm + b * scb;
     const size_t ys_stride = static_cast<size_t>(H) * P;
-    T* yg = y + static_cast<size_t>(b) * S * ys_stride
+    float* yg = y + static_cast<size_t>(b) * S * ys_stride
             + static_cast<size_t>(h) * P;
 
     for (int i = tid; i < static_cast<int>(kTile); i += kThreads) Ss[i] = 0.f;
@@ -117,10 +110,10 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
             float xv = 0.f, bv = 0.f, cv = 0.f;
             if (t < len) {
                 const long long s = s0 + t;
-                if (k < P) xv = to_f32(xg[s * sxs + k]);
+                if (k < P) xv = xg[s * sxs + k];
                 if (k < N) {
-                    bv = to_f32(bg[s * sbs + k]);
-                    cv = to_f32(cg[s * scs + k]);
+                    bv = bg[s * sbs + k];
+                    cv = cg[s * scs + k];
                 }
             }
             Xs[t * kLD + k] = xv;
@@ -212,8 +205,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                     if (p >= P) continue;
                     const float v = ecum[t] * ys[r][q] + yi[r][q]
                                     + Dh * Xs[t * kLD + p];
-                    yg[static_cast<size_t>(s0 + t) * ys_stride + p] =
-                        from_f32<T>(v);
+                    yg[static_cast<size_t>(s0 + t) * ys_stride + p] = v;
                 }
             }
         }
@@ -248,29 +240,30 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
 }
 
-template <typename T>
 int launch(const void* x, const void* dt, const void* A_log, const void* Bm,
            const void* Cm, const void* D, void* y, int B, int S, int H, int P,
            int N, const long long* st, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    ssd_kernel<T><<<B * H, kThreads, kSmemBytes, stream>>>(
-        static_cast<const T*>(x), static_cast<const float*>(dt),
-        static_cast<const float*>(A_log), static_cast<const T*>(Bm),
-        static_cast<const T*>(Cm), static_cast<const float*>(D),
-        static_cast<T*>(y), S, H, P, N, st[0], st[1], st[2], st[3], st[4],
+    ssd_kernel<<<B * H, kThreads, kSmemBytes, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(A_log), static_cast<const float*>(Bm),
+        static_cast<const float*>(Cm), static_cast<const float*>(D),
+        static_cast<float*>(y), S, H, P, N, st[0], st[1], st[2], st[3], st[4],
         st[5], st[6], st[7], st[8], st[9]);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype 0: x, B, C, y in f32; 1: bf16.  dt, A_log and D are f32.  strides
-// (in elements): x's batch, step and head; dt's batch, step and head; B's
-// batch and step; C's batch and step (the last axis of each is contiguous).
-// Returns a cudaError_t code, 0 on success.
+// dtype 0: x, B, C, y in f32 (the CUDA-core form); 1: bf16 (the tensor-core
+// form).  dt, A_log and D are f32.  strides (in elements): x's batch, step
+// and head; dt's batch, step and head; B's batch and step; C's batch and
+// step (the last axis of each is contiguous).  Returns a cudaError_t code,
+// 0 on success, or -(a CUresult) when the bf16 form cannot make a tensor
+// map.
 extern "C" int mamba2_ssd_launch(const void* x, const void* dt,
                                  const void* A_log, const void* Bm,
                                  const void* Cm, const void* D, void* y,
@@ -281,10 +274,9 @@ extern "C" int mamba2_ssd_launch(const void* x, const void* dt,
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return launch<float>(x, dt, A_log, Bm, Cm, D, y, B, S, H, P, N,
-                             strides, s);
+        return launch(x, dt, A_log, Bm, Cm, D, y, B, S, H, P, N, strides, s);
     if (dtype == 1)
-        return launch<__nv_bfloat16>(x, dt, A_log, Bm, Cm, D, y, B, S, H, P,
-                                     N, strides, s);
+        return mamba2_ssd_wgmma_launch(x, dt, A_log, Bm, Cm, D, y, B, S, H,
+                                       P, N, strides, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,10 +1,13 @@
 """Public wrapper of the hand-written Mamba-2 SSD kernel.
 
-``ssd(x, dt, A_log, B, C, D)`` launches the kernel (``csrc/mamba2_ssd.cu``)
-when the tensors lie on a CUDA device and raises if it cannot; only CPU
-tensors go to the plain PyTorch version (``ref.ssd_torch``).  Every launch
-adds one to the module's launch count (``launches()``), so a run can show
-that it went through the kernel.
+``ssd(x, dt, A_log, B, C, D)`` launches the kernel when the tensors lie on a
+CUDA device and raises if it cannot: bf16 runs the tensor-core form
+(``csrc/mamba2_ssd_wgmma.cu``: wgmma and TMA, kernel ``ssd_kernel_wgmma``),
+f32 the CUDA-core form (``csrc/mamba2_ssd.cu``, kernel ``ssd_kernel``, whose
+C entry point picks the form by dtype).  Only CPU tensors go to the plain
+PyTorch version (``ref.ssd_torch``).  Every launch adds one to the module's
+launch count (``launches()``), so a run can show that it went through the
+kernel.
 """
 from __future__ import annotations
 
@@ -14,11 +17,15 @@ import threading
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "mamba2_ssd.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: the two forms' sources and the Hopper header the bf16 form includes
+SOURCES = (_CSRC / "mamba2_ssd.cu", _CSRC / "mamba2_ssd_wgmma.cu",
+           _CSRC.parents[1] / "csrc" / "hopper.cuh")
 #: the dtypes of x, B, C and y the kernel takes, by the code its C entry
 #: point reads (dt, A_log and D are handed over in f32)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -26,6 +33,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head (P) and state (N)
 CHUNK = 64
 MAX_WIDTH = 64
+#: the bf16 form's TMA reads tensors that start on 16 bytes and whose strides
+#: (but the last) are multiples of 16 bytes: 8 bf16 elements
+TMA_ALIGN = 16
 
 _launches = 0
 _count_lock = threading.Lock()
@@ -84,6 +94,17 @@ def _check(x, dt, A_log, B, C, D):
     return Bsz, S, H, P, N
 
 
+def _tma_readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the bf16 form's TMA can read it as it lies, else a
+    contiguous copy with its last axis zero-padded to a multiple of 8
+    (the kernel still reads only the first ``t.shape[-1]`` columns)."""
+    size = t.element_size()
+    if t.data_ptr() % TMA_ALIGN == 0 and all(
+            st * size % TMA_ALIGN == 0 for st in t.stride()[:-1]):
+        return t
+    return F.pad(t, (0, -t.shape[-1] % (TMA_ALIGN // size))).contiguous()
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         B: torch.Tensor, C: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     """Chunked SSD over chunks of ``CHUNK`` steps.  x: (B, S, H, P); dt:
@@ -94,7 +115,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     On CUDA tensors this launches the kernel on the current stream, without
     synchronising, or raises: x, B and C share one dtype of f32 or bf16,
     their last axis is contiguous (other strides are read as they are),
-    and P and N are at most 64.  CPU tensors run the plain version."""
+    and P and N are at most 64.  bf16 runs the tensor-core form, whose TMA
+    reads tensors that start on 16 bytes with every other stride a multiple
+    of 8 elements; x, B or C that is not so (a state of 12, an odd offset)
+    is copied first, contiguous and zero-padded (``_tma_readable``), and
+    still runs that form.  f32 runs the CUDA-core form.  CPU tensors run
+    the plain version."""
     global _launches
     Bsz, S, H, P, N = _check(x, dt, A_log, B, C, D)
     if x.device.type == "cpu":
@@ -109,9 +135,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         raise ValueError(f"P = {P} and N = {N} must be at most {MAX_WIDTH}")
     if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
         raise ValueError("x, B and C need a contiguous last axis")
+    if x.dtype == torch.bfloat16:
+        x, B, C = _tma_readable(x), _tma_readable(B), _tma_readable(C)
     dt, A_log, D = dt.float(), A_log.float().contiguous(), \
         D.float().contiguous()
-    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    # the bf16 form stores y with TMA: rows of a multiple of 16 bytes
+    PY = P + (-P % (TMA_ALIGN // 2)) if x.dtype == torch.bfloat16 else P
+    y = torch.empty((Bsz, S, H, PY), dtype=x.dtype, device=x.device)
     strides = (ctypes.c_longlong * 10)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2])
     fn = _launcher()
@@ -120,8 +150,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(),
                  B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
                  DTYPES[x.dtype], Bsz, S, H, P, N, strides, stream)
+    if err < 0:
+        raise RuntimeError(f"mamba2_ssd: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {-err}; 1 also when libcuda has no "
+                           f"such entry point)")
     if err != 0:
         raise RuntimeError(f"mamba2_ssd launch failed: CUDA error {err}")
     with _count_lock:
         _launches += 1
-    return y
+    return y if PY == P else y[..., :P].contiguous()

@@ -7,16 +7,21 @@ bf16 at 5e-2, the reference's own tolerances, and against the reference's
 ``ssd_chunked`` at its 1e-4, each under the random-weight model's fast decay
 and under Mamba-2's slow decay, which carries the state across chunks; then ``_split_proj``, ``_causal_conv`` and
 ``mamba2_layer`` (prefill and decode) against the reference on weights
-carried by ``interop.lm_params_from_state``.  On a card (``cuda`` marker,
-skipped without one): the hand-written kernel against ``ssd_torch``, and its
-launches through ``mamba2_layer``; those tests import nothing of JAX, so
-they also run where only the port is installed:
+carried by ``interop.lm_params_from_state``; and an emulation of the bf16
+kernel's rounding (W, S and kdec x each split into bf16 hi + lo) against the
+bound the kernel is held to.  On a card (``cuda`` marker, skipped without
+one): the hand-written kernel against ``ssd_torch`` (bf16: the tensor-core
+form ``ssd_kernel_wgmma``; f32: the CUDA-core form ``ssd_kernel``, each
+checked by name under ``torch.profiler``), and its launches through
+``mamba2_layer``; those tests import nothing of JAX, so they also run where
+only the port is installed:
 
     python -m pytest -q -m cuda tests/test_torch_mamba2.py
 """
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.mamba2_ssd import ops
@@ -175,6 +180,102 @@ def test_slow_decay_shows_the_carried_state(dtype):
     outside = (fault - want).abs() > atol + rtol * want.abs()
     # the first two chunks carry no decayed state: the fault shows after
     assert not outside[:, :128].any() and outside[:, 128:].any()
+
+
+#: the bf16 kernel's operands that are f32 values, each of which it splits
+#: into bf16 hi + lo: W (the intra-chunk weights), S (the carried state) and
+#: kdec x (the state update's left-hand side, x's rows scaled by kdec)
+SPLIT = ("W", "S", "kdecx")
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+def kernel_rounding(x, dt, A_log, B, C, D, chunk=64, split=SPLIT):
+    """The bf16 tensor-core form's arithmetic on the CPU, chunk by chunk:
+    every product takes bf16 operands and sums in f32; x, B and C are bf16
+    already; W (with D on its diagonal, which carries the D x skip), S and
+    kdec x enter as bf16 hi + lo (hi = bf16(v), lo = bf16(v - hi)) where
+    ``split`` names them and rounded once to bf16 where it does not;
+    y = exp(cum) (C S^T) + (W + D I) x in f32, rounded once."""
+    Bsz, S, H, P = x.shape
+    N = B.shape[-1]
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    xc = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(Bsz, n, chunk, H, P)
+    dtc = F.pad(dt.float(), (0, 0, 0, pad)).reshape(Bsz, n, chunk, H)
+    Bc = F.pad(B.float(), (0, 0, 0, pad)).reshape(Bsz, n, chunk, N)
+    Cc = F.pad(C.float(), (0, 0, 0, pad)).reshape(Bsz, n, chunk, N)
+    lac = -dtc * torch.exp(A_log.float())
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))[
+        None, :, :, None]
+    skip = torch.eye(chunk)[None, :, :, None] * D.float()    # D on the diagonal
+
+    def parts(v, name):
+        hi = _bf16(v)
+        return (hi, _bf16(v - hi)) if name in split else (hi,)
+
+    state = torch.zeros((Bsz, H, P, N))
+    ys = []
+    for c in range(n):
+        xb, dtb, Bb, Cb = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+        cum = torch.cumsum(lac[:, c], dim=1)                  # (B, L, H)
+        y = sum(torch.einsum("bhpn,bln->blhp", s, Cb)
+                for s in parts(state, "S")) * torch.exp(cum)[..., None]
+        expo = cum[:, :, None, :] - cum[:, None, :, :]
+        g = torch.where(tri, torch.exp(torch.where(tri, expo, 0.0)), 0.0)
+        w = g * torch.einsum("bln,bin->bli", Cb, Bb)[..., None] \
+            * dtb[:, None, :, :] + skip                       # (B, L, L, H)
+        y = y + sum(torch.einsum("blih,bihp->blhp", wp, xb)
+                    for wp in parts(w, "W"))
+        ys.append(y)
+        k_dec = torch.exp(cum[:, -1:, :] - cum) * dtb         # (B, L, H)
+        kx = k_dec[..., None] * xb                            # (B, L, H, P)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + sum(
+            torch.einsum("blhp,bln->bhpn", kp, Bb)
+            for kp in parts(kx, "kdecx"))
+    y = torch.stack(ys, dim=1).reshape(Bsz, n * chunk, H, P)[:, :S]
+    return y.to(x.dtype)
+
+
+def _outside(got, want):
+    """How many elements of ``got`` lie outside ``KERNEL_TOL[bf16]`` of
+    ``want``."""
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    want = want.float()
+    return int(((got.float() - want).abs() > atol + rtol * want.abs()).sum())
+
+
+#: zamba2's prefill shape: B = 2 prompts of 2048 steps, 80 heads of 64,
+#: state 64
+PREFILL = (2, 2048, 80, 64, 64)
+
+
+@pytest.mark.parametrize("decay", DECAYS)
+def test_kernel_rounding_meets_the_kernel_bound(decay):
+    """With W, S and kdec x each split into bf16 hi + lo, the bf16 kernel's
+    arithmetic stays within ``KERNEL_TOL[bf16]`` of the plain version in
+    every element at the main path's shape."""
+    args = _inputs(*PREFILL, dtype=torch.bfloat16, seed=11, decay=decay)
+    got = kernel_rounding(*args)
+    want = ssd_torch(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("decay", DECAYS)
+@pytest.mark.parametrize("operand", SPLIT)
+def test_rounding_one_operand_once_leaves_the_bound(operand, decay):
+    """Why the kernel splits each of the three: with that operand rounded
+    once to bf16 (the other two split), outputs at the main path's shape
+    fall outside ``KERNEL_TOL[bf16]`` of the plain version."""
+    args = _inputs(*PREFILL, dtype=torch.bfloat16, seed=11, decay=decay)
+    got = kernel_rounding(*args, split=tuple(o for o in SPLIT
+                                             if o != operand))
+    assert _outside(got, ssd_torch(*args)) > 0
 
 
 def test_wrapper_runs_plain_version_on_cpu_and_counts_nothing():
@@ -368,16 +469,85 @@ def test_kernel_matches_plain_version(card, shape, dtype, decay):
                                rtol=rtol)
 
 
+def _ssd_kernels_run(fn, attempts=3):
+    """The names of the SSD kernels (device kernels whose name holds
+    "ssd_kernel") that ``fn`` launches, under ``torch.profiler``.  A short
+    profile now and then records no device event at all, so it is taken
+    again, up to ``attempts`` times, until it records one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = set()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {ev.key for ev in prof.key_averages()
+                 if ev.device_type != DeviceType.CPU
+                 and "ssd_kernel" in ev.key}
+        if names:
+            break
+    return names
+
+
+def _assert_form(names, dtype):
+    """bf16 runs the tensor-core form alone, f32 the CUDA-core form."""
+    assert names, "no SSD kernel ran"
+    if dtype == torch.bfloat16:
+        assert all("ssd_kernel_wgmma" in n for n in names), names
+    else:
+        assert not any("wgmma" in n for n in names), names
+
+
 @pytest.mark.cuda
-def test_kernel_reads_strided_views(card):
-    """The model hands in x, B and C as views of the conv output."""
-    B, S, H, P, N = 2, 100, 6, 16, 8
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: "B{}-S{}-H{}-P{}-N{}".format(*s))
+def test_kernel_runs_the_form_of_its_dtype(card, shape, dtype):
+    """bf16 runs ``ssd_kernel_wgmma`` (a state of 12 through a padded copy),
+    f32 ``ssd_kernel``, by the names the profiler sees."""
+    args = _inputs(*shape, dtype=dtype, seed=11, device=card, decay="slow")
+    _assert_form(_ssd_kernels_run(lambda: ops.ssd(*args)), dtype)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_copies_what_tma_cannot_read(card):
+    """x at an offset off 16 bytes and a contiguous state of 12 (rows of 24
+    bytes) break TMA's rules: the wrapper copies them, zero-padded, and
+    still launches the tensor-core form, once."""
+    x, dt, A_log, Bm, Cm, D = _inputs(2, 130, 3, 16, 12, dtype=torch.bfloat16,
+                                      device=card, decay="slow")
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)[1:]
+    shifted = shifted.view(x.shape).copy_(x)
+    assert shifted.data_ptr() % 16 and Bm.stride(1) * 2 % 16
+    before = ops.launches()
+    names = _ssd_kernels_run(lambda: ops.ssd(shifted, dt, A_log, Bm, Cm, D))
+    _assert_form(names, torch.bfloat16)
+    assert ops.launches() == before + 1
+    got = ops.ssd(shifted, dt, A_log, Bm, Cm, D)
+    want = ssd_torch(x, dt, A_log, Bm, Cm, D)
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 100, 6, 16, 8), (2, 300, 80, 64, 64)],
+                         ids=["small", "zamba2-widths"])
+def test_kernel_reads_strided_views(card, shape):
+    """The model hands in x, B and C as views of the conv output: rows of
+    H P + 2 N elements, B and C at H P and H P + N (at zamba2's widths rows
+    of 10,496 bytes, B at byte 10,240 and C at 10,368), read in place."""
+    B, S, H, P, N = shape
     x, dt, A_log, _, _, D = _inputs(B, S, H, P, N, dtype=torch.bfloat16,
-                                    device=card)
+                                    device=card, decay="slow")
     conv = torch.randn((B, S, H * P + 2 * N), device=card).bfloat16()
     xv, Bv, Cv = torch.split(conv, [H * P, N, N], dim=-1)
     xv = xv.reshape(B, S, H, P)
     assert not xv.is_contiguous() and not Bv.is_contiguous()
+    assert all(ops._tma_readable(t) is t for t in (xv, Bv, Cv))
+    _assert_form(_ssd_kernels_run(lambda: ops.ssd(xv, dt, A_log, Bv, Cv, D)),
+                 torch.bfloat16)
     got = ops.ssd(xv, dt, A_log, Bv, Cv, D)
     want = ssd_torch(xv.contiguous(), dt, A_log, Bv.contiguous(),
                      Cv.contiguous(), D)
