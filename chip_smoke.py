@@ -19,15 +19,23 @@ Mamba-2's initial ranges), through ``prefill_fn`` and ``greedy_generate``.
 Each phase prints one JSON line:
 
   device           the card's name and power limit (``nvidia-smi``), versions
-  build            per kernel: build time, ptxas resource lines, and the
-                   count of HGMMA (wgmma), HMMA (mma.sync) and FFMA
-                   instructions in each kernel's SASS (cuobjdump)
+  build            per kernel: build time, ptxas resource lines (for
+                   cgra_exec per form, and the shared memory of its two
+                   hand-built tables' launches), and the count of HGMMA
+                   (wgmma), HMMA (mma.sync) and FFMA instructions in each
+                   kernel's SASS (cuobjdump)
   kernel_vs_plain  cgra_exec per pair: kernel vs plain version, bit-exact at
-                   B = 4096, 4 lanes vs the scalar reference simulator; the
-                   hand-built edge-case table
+                   B = 1, 129 and 4096, the launch's form; the hand-built
+                   edge-case table, and the large-state table whose state
+                   only global memory holds
+  kernel_vs_reference  per pair: 4 lanes vs the scalar reference simulator
   main_path        per pair: validate vs the interp oracle, run_batch(4096)
-                   vs the sim backend, throughput, traces, launches
-  timing           per pair: kernel and plain ms per launch, the bound
+                   vs the sim backend and one launch, throughput, traces,
+                   launches
+  timing           per pair: kernel and plain ms per launch at B = 1, 128 and
+                   4096, the bound, the form and geometry of the launch
+  geometry         gemm on HyCUBE: ms per launch at B = 128 and 4096 for
+                   each geometry (one lane per thread, 32 lanes x W warps)
   breakdown        gemm on HyCUBE: run_batch(4096) split on the host clock,
                    device time by kernel and the device's idle share
                    (torch.profiler)
@@ -86,8 +94,11 @@ PAIRS = ([(k, "hycube", {"rows": 4, "cols": 4})
           for k in ("gemm", "fft", "aes", "nw", "adpcm", "disparity")]
          + [(k, "pace", {}) for k in ("gemm", "fft", "nw")])
 BATCH = 4096
-#: the engine's largest bucket: the shape every main-path launch has
-BUCKET = 128
+#: the batch sizes each pair's kernel is checked and timed at
+CHECK_B, TIME_B = (1, 129, BATCH), (1, 128, BATCH)
+#: (groups of 32 lanes, warps a group) the geometry phase times: one lane
+#: per thread (128 and 32 lanes a block), and 32 lanes x 2, 4, 8 warps
+GEOMETRIES = ((4, 1), (1, 1), (1, 2), (1, 4), (1, 8))
 #: H100 SXM peaks (NVIDIA data sheet; Hopper white paper for the int32
 #: lanes): HBM3 bytes/s, and 132 SMs x 64 INT32 lanes x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
@@ -209,9 +220,10 @@ def time_ms(fn, reps: int, warmup: int = 1):
     return start.elapsed_time(end) / reps, host_ms
 
 
-def breakdown(program, exe, rng) -> dict:
+def breakdown(program, exe, rng, backend) -> dict:
     """One warm ``run_batch`` of BATCH vectors on the ``cuda`` backend,
-    split on the host clock into flatten / engine / unflatten, and once
+    split on the host clock into flatten / engine / unflatten (through the
+    engine ``run_batch`` uses: the backend's lanes and device), and once
     more under ``torch.profiler`` (``device_profile``)."""
     from repro_torch import ual
     mems = [program.random_inputs(rng) for _ in range(BATCH)]
@@ -220,7 +232,8 @@ def breakdown(program, exe, rng) -> dict:
     t0 = time.perf_counter()
     flats = program.flatten_batch(mems)
     t1 = time.perf_counter()
-    out, _ = engine.run(exe.lowered, flats, program.n_iters)
+    out, _ = engine.run(exe.lowered, flats, program.n_iters,
+                        lanes=backend.lanes, device=backend.device)
     t2 = time.perf_counter()
     program.unflatten_batch(out)
     t3 = time.perf_counter()
@@ -327,12 +340,40 @@ def build_all() -> dict:
         futs = {name: pool.submit(timed, mod) for name, mod in kernels}
         for name, fut in futs.items():
             lib, seconds = fut.result()
-            ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-                     .splitlines() if "registers" in ln or "spill" in ln]
+            ptxas = [ptxas_line(ln) for ln in lib.with_suffix(".log")
+                     .read_text().splitlines()
+                     if "registers" in ln or "spill" in ln
+                     or "Compiling entry" in ln]
             sass[name] = sass_counts(lib)
+            extra = cgra_shared_memory() if name == "cgra_exec" else {}
             emit("build", kernel=name, seconds=round(seconds, 3),
-                 library=lib.name, ptxas=ptxas, sass=sass[name])
+                 library=lib.name, ptxas=ptxas, sass=sass[name], **extra)
     return sass
+
+
+def ptxas_line(line: str) -> str:
+    """A ptxas resource line, or for an entry function its kernel's name
+    and template arguments (cgra_exec's <state shared, tables shared>)."""
+    head = re.search(r"Compiling entry function '(\S+)'", line)
+    if not head:
+        return line.strip()
+    args = re.search(r"ILb([01])ELb([01])E", head.group(1))
+    form = f"<{args.group(1)},{args.group(2)}>" if args else ""
+    return f"entry {kernel_name(head.group(1))}{form}"
+
+
+def cgra_shared_memory() -> dict:
+    """Dynamic shared memory of cgra_exec's launches on its two hand-built
+    tables (a mapped pair's is in its kernel_vs_plain line)."""
+    from repro_torch.kernels.cgra_exec import ops
+    from repro_torch.kernels.cgra_exec.edge_cases import (edge_case_config,
+                                                          large_state_config)
+    out = {}
+    for name, linked in (("edge_cases", edge_case_config()),
+                         ("large_state", large_state_config())):
+        plan = ops.plan_launch(ops.pack_tables(linked))
+        out[name] = {"form": plan.form, "smem_bytes": plan.smem_bytes}
+    return {"shared_memory": out}
 
 
 def cgra_phases(dev, rng) -> dict:
@@ -348,8 +389,14 @@ def cgra_phases(dev, rng) -> dict:
     from repro_torch.core.simulator import simulate_reference
     from repro_torch.kernels.cgra_exec import ops
     from repro_torch.kernels.cgra_exec.edge_cases import (edge_case_config,
-                                                          edge_case_images)
+                                                          edge_case_images,
+                                                          large_state_config)
     from repro_torch.kernels.cgra_exec.ref import cgra_exec_torch
+
+    backend = ual.get_backend("cuda")
+    top = backend.lanes
+    check(top == BATCH, f"the cuda backend's top bucket is {top}, not "
+                        f"{BATCH}: a run_batch of {BATCH} is not one launch")
 
     # ---- compile every pair through the port's own toolchain -----------------
     compiled = {}
@@ -366,74 +413,98 @@ def cgra_phases(dev, rng) -> dict:
     # ---- kernel vs plain version -------------------------------------------
     max_err = 0
     mismatched = 0
+
+    def against_plain(name, linked, flats, n, **fields):
+        nonlocal max_err, mismatched
+        tables = ops.upload_tables(linked, dev)
+        plan = ops.plan_launch(tables.layout)
+        for B in CHECK_B:
+            memT = to_dev(flats[:B])
+            got = ops.cgra_exec(tables, memT, n)
+            want = cgra_exec_torch(linked, memT, n)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            bad = int((got != want).sum())
+            max_err, mismatched = max(max_err, err), mismatched + bad
+            emit("kernel_vs_plain", kernel=name, II=linked.II,
+                 P=linked.n_pes, R=linked.n_regs, M=int(memT.shape[0]), B=B,
+                 form=plan.form, smem_bytes=plan.smem_bytes,
+                 packed_bytes=4 * int(tables.layout.words.size),
+                 state_words_per_lane=tables.layout.state_rows,
+                 max_abs_err=err, mismatched_words=bad, **fields)
+            check(bad == 0, f"{name}: kernel disagrees with its plain "
+                            f"version in {bad} words at B = {B}")
+        return got, plan
+
     for (kname, fab), (program, exe) in compiled.items():
         linked = link_config(exe.map_result.config)
-        tables = ops.upload_tables(linked, dev)
         flats = program.flatten_batch([program.random_inputs(rng)
                                        for _ in range(BATCH)])
-        memT = to_dev(flats)
         n = program.n_iters
-        got = ops.cgra_exec(tables, memT, n)
-        want = cgra_exec_torch(linked, memT, n)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        bad = int((got != want).sum())
+        got, _ = against_plain(kname, linked, flats, n,
+                               fabric=exe.target.fabric.name,
+                               cycles=linked.total_cycles(n),
+                               cm_bytes=linked.cm_bytes())
         got_h = got.t().cpu().numpy()
         ref_bad = 0
         for b in range(4):
             ref, _ = simulate_reference(exe.map_result.config, flats[b], n,
                                         check_ports=False)
             ref_bad += int((ref != got_h[b]).sum())
-        max_err, mismatched = max(max_err, err), mismatched + bad + ref_bad
-        emit("kernel_vs_plain", kernel=kname, fabric=exe.target.fabric.name,
-             II=linked.II, P=linked.n_pes, M=int(memT.shape[0]), B=BATCH,
-             cycles=linked.total_cycles(n), cm_bytes=linked.cm_bytes(),
-             max_abs_err=err, mismatched_words=bad,
-             ref_lanes_mismatched_words=ref_bad)
-        check(bad == 0 and ref_bad == 0,
-              f"{kname}@{fab}: kernel disagrees ({bad} words vs plain, "
-              f"{ref_bad} vs simulate_reference)")
-    edge = edge_case_config()
-    edge_tables = ops.upload_tables(edge, dev)
-    memT = to_dev(edge_case_images(rng, BATCH, 8192))
-    got = ops.cgra_exec(edge_tables, memT, 6)
-    want = cgra_exec_torch(edge, memT, 6)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
-    bad = int((got != want).sum())
-    max_err, mismatched = max(max_err, err), mismatched + bad
-    emit("kernel_vs_plain", kernel="edge_cases", P=edge.n_pes, II=edge.II,
-         M=8192, B=BATCH, max_abs_err=err, mismatched_words=bad)
-    check(bad == 0, f"edge-case table: kernel disagrees in {bad} words")
+        mismatched += ref_bad
+        emit("kernel_vs_reference", kernel=kname,
+             fabric=exe.target.fabric.name, lanes=4,
+             mismatched_words=ref_bad)
+        check(ref_bad == 0, f"{kname}@{fab}: kernel disagrees with "
+                            f"simulate_reference in {ref_bad} words")
+    against_plain("edge_cases", edge_case_config(),
+                  edge_case_images(rng, BATCH, 8192), 6)
+    _, plan = against_plain("large_state", large_state_config(),
+                            edge_case_images(rng, BATCH, 8192), 6)
+    check(not plan.state_shared,
+          "the large-state table did not run the global-state form")
 
     # ---- the main path, through the user's entry points ---------------------
     ops.reset_launches()
-    main_launches = 0
+    per_run_batch = []
     for (kname, fab), (program, exe) in compiled.items():
         before = ops.launches()
         rep = exe.validate(backends=("cuda", "sim"), n_vectors=64)
         check(rep.passed, f"{kname}@{fab}: validate failed: "
                           f"{rep.backend_results}, {rep.mismatches} words")
         mems = [program.random_inputs(rng) for _ in range(BATCH)]
+        engine = ual.default_engine().engine_for(exe.lowered, lanes=top,
+                                                 device=backend.device)
+        calls_before = dict(engine.stats()["bucket_calls"])
+        rb_before = ops.launches()
         outs = exe.run_batch(mems)
+        rb_launches = ops.launches() - rb_before
+        per_run_batch.append(rb_launches)
         sps = exe.last_info["throughput_sps"]
         wall = exe.last_info["wall_s"]
+        stats = engine.stats()
+        rb_calls = {b: c - calls_before.get(b, 0)
+                    for b, c in stats["bucket_calls"].items()
+                    if c != calls_before.get(b, 0)}
+        check(rb_launches == 1 and rb_calls == {BATCH: 1},
+              f"{kname}@{fab}: run_batch({BATCH}) made {rb_launches} "
+              f"launches, bucket calls {rb_calls}")
         sims = exe.run_batch(mems, backend="sim")
         diff = sum(int((o[a] != s[a]).sum()) for o, s in zip(outs, sims)
                    for a in program.outputs)
         check(diff == 0, f"{kname}@{fab}: run_batch(cuda) != sim in "
                          f"{diff} words")
-        stats = ual.default_engine().engine_for(exe.lowered).stats()
         launched = ops.launches() - before
         check(stats["traces"] <= len(stats["buckets"]),
               f"{kname}@{fab}: {stats['traces']} traces > buckets")
-        check(launched > 0, f"{kname}@{fab}: the kernel never launched")
         emit("main_path", kernel=kname, fabric=exe.target.fabric.name,
              II=exe.II, validate=rep.passed, n_vectors=64,
              run_batch=BATCH, agrees_with_sim=True, wall_s=wall,
              throughput_sps=sps, traces=stats["traces"],
              buckets=list(stats["buckets"]),
-             bucket_calls=stats["bucket_calls"], launches=launched)
+             bucket_calls=stats["bucket_calls"],
+             run_batch_bucket_calls=rb_calls,
+             run_batch_launches=rb_launches, launches=launched)
     main_launches = ops.launches()
     check(main_launches > 0, "the main path never launched cgra_exec")
 
@@ -442,12 +513,13 @@ def cgra_phases(dev, rng) -> dict:
     for (kname, fab), (program, exe) in compiled.items():
         linked = exe.lowered
         tables = ops.upload_tables(linked, dev)
+        plan = ops.plan_launch(tables.layout)
         n = program.n_iters
         flats = program.flatten_batch([program.random_inputs(rng)
                                        for _ in range(BATCH)])
         row = {"kernel": kname, "fabric": exe.target.fabric.name,
-               "M": flats.shape[1], "n_iters": n}
-        for B in (BUCKET, BATCH):
+               "M": flats.shape[1], "n_iters": n, "form": plan.form}
+        for B in TIME_B:
             memT = to_dev(flats[:B])
             row[f"ms_B{B}"], row[f"host_ms_B{B}"] = time_ms(
                 lambda: ops.cgra_exec(tables, memT, n), reps=20, warmup=3)
@@ -458,10 +530,27 @@ def cgra_phases(dev, rng) -> dict:
         rows[(kname, fab)] = row
         emit("timing", **row)
 
-    # ---- where run_batch's time goes ----------------------------------------
+    # ---- geometries, on gemm ----------------------------------------------
     program, exe = compiled[("gemm", "hycube")]
+    tables = ops.upload_tables(exe.lowered, dev)
+    flats = program.flatten_batch([program.random_inputs(rng)
+                                   for _ in range(BATCH)])
+    kept = ops.plan_launch(tables.layout)
+    for groups, warps in GEOMETRIES:
+        plan = ops.plan_launch(tables.layout, groups, warps)
+        row = {"kernel": "gemm", "fabric": exe.target.fabric.name,
+               "groups": groups, "warps": warps, "form": plan.form,
+               "kept": (groups, warps) == (kept.groups, kept.warps)}
+        for B in (128, BATCH):
+            memT = to_dev(flats[:B])
+            row[f"ms_B{B}"], _ = time_ms(
+                lambda: ops.cgra_exec(tables, memT, program.n_iters, plan),
+                reps=20, warmup=3)
+        emit("geometry", **row)
+
+    # ---- where run_batch's time goes ----------------------------------------
     emit("breakdown", kernel="gemm", fabric=exe.target.fabric.name,
-         B=BATCH, **breakdown(program, exe, rng))
+         B=BATCH, **breakdown(program, exe, rng, backend))
 
     # ---- summary -------------------------------------------------------------
     lead = rows[("gemm", "hycube")]
@@ -469,12 +558,12 @@ def cgra_phases(dev, rng) -> dict:
         "name": "cgra_exec", "route": "cuda",
         "source": "src/repro_torch/kernels/cgra_exec/csrc/cgra_exec.cu",
         "replaces": "src/repro/kernels/cgra_exec/kernel.py:83",
-        "launches": main_launches, "max_abs_err": max_err,
-        "max_mismatch": mismatched,
-        "ms": lead[f"ms_B{BUCKET}"], "plain_ms": lead[f"plain_ms_B{BUCKET}"],
-        "bound_ms": lead[f"bound_ms_B{BUCKET}"], "bound_by": lead["bound_by"],
-        "library_ms": None,
-        "shape": f"gemm on {lead['fabric']}, M={lead['M']}, B={BUCKET}, "
+        "launches": main_launches, "launches_per_run_batch": max(per_run_batch),
+        "max_abs_err": max_err, "max_mismatch": mismatched,
+        "ms": lead[f"ms_B{BATCH}"], "plain_ms": lead[f"plain_ms_B{BATCH}"],
+        "bound_ms": lead[f"bound_ms_B{BATCH}"], "bound_by": lead["bound_by"],
+        "library_ms": None, "form": lead["form"],
+        "shape": f"gemm on {lead['fabric']}, M={lead['M']}, B={BATCH}, "
                  f"n_iters={lead['n_iters']}"}
 
 

@@ -103,6 +103,44 @@ def edge_case_config() -> LinkedConfig:
                         scalar=scalar, ops=ops, regw=regw)
 
 
+#: the large-state table: P and R whose per-lane state (P * (1 + R) words
+#: and more) exceeds shared memory for even 32 lanes, so the kernel keeps
+#: it in global memory; its images need M >= LARGE_MIN_WORDS
+LARGE_P, LARGE_R = 128, 16
+LARGE_MIN_WORDS = 1024
+
+
+def large_state_config() -> LinkedConfig:
+    """The edge-case table in PEs 0..31 of a P = 128, R = 16 fabric, and
+    96 more PEs that use the large register file: in slot 0, PE 32 + j
+    XORs an edge-case latch into its register 15 (a K_RESULT write), in
+    slot 1 it copies a neighbour's register 15 into its register 3 + j % 12
+    (K_R) and stores its register 15 at ``256 + 8*j + i``."""
+    edge = edge_case_config()
+    P, R = LARGE_P, LARGE_R
+    scalar = np.zeros((II, P, 4), np.int32)
+    ops = np.zeros((II, P, 3, 5), np.int32)
+    regw = np.zeros((II, P, R, 3), np.int32)
+    scalar[:, :, 3] = -1
+    scalar[:, :edge.n_pes] = edge.scalar
+    ops[:, :edge.n_pes] = edge.ops
+    regw[:, :edge.n_pes, :edge.n_regs] = edge.regw
+    for j in range(P - edge.n_pes):
+        p = edge.n_pes + j
+        scalar[0, p] = (OPC["XOR"], 0, 0, 0)
+        ops[0, p, 0] = (K_R, p, R - 1, 0, 0)
+        ops[0, p, 1] = (K_O, 7 + j % len(_ALU), 0, 0, 0)
+        regw[0, p, R - 1] = (K_RESULT, p, 0)
+        scalar[1, p] = (OPC["STORE"], MIN_WORDS + 8 * j, 0, 1)
+        ops[1, p, 0] = (K_O, 0, 0, 0, 0)
+        ops[1, p, 1] = (K_R, p, R - 1, 0, 0)
+        regw[1, p, 3 + j % 12] = (K_R, edge.n_pes + (j + 1) % (P - edge.n_pes),
+                                  R - 1)
+    mem_pes = tuple(edge.mem_pes) + tuple(range(edge.n_pes, P))
+    return LinkedConfig(II=II, n_pes=P, n_regs=R, mem_pes=mem_pes,
+                        scalar=scalar, ops=ops, regw=regw)
+
+
 def edge_case_images(rng: np.random.Generator, B: int,
                      M: int = MIN_WORDS) -> np.ndarray:
     """(B, M) int32 images: address-like words at [0, 8) (in and out of

@@ -171,15 +171,16 @@ class EngineBackend(Backend):
     the hand-written CUDA kernel and raises where there is no CUDA device;
     ``"cpu"`` runs the plain PyTorch version.  The linked tables stay on
     the device per engine, ``n_iters`` is a kernel argument, and batch
-    sizes pad up the bucket ladder."""
+    sizes pad up the bucket ladder (``engine.bucket_ladder(lanes)``).
+    ``lanes`` is the engine's largest bucket, one launch of the kernel:
+    batches above it run as ``lanes``-row chunks."""
 
     consumes_lowered = True
     accepts_flats = True
-    #: the engine's largest bucket: one thread block of the kernel
-    lanes = 128
 
-    def __init__(self, device: str):
+    def __init__(self, device: str, lanes: int = 128):
         self.device = device
+        self.lanes = lanes
 
     @property
     def engine(self):
@@ -246,7 +247,11 @@ def list_backends() -> List[str]:
     return sorted(_BACKENDS)
 
 
+#: the ``cuda`` backend's largest bucket: a ``run_batch`` of 4096 test
+#: vectors is one launch of the kernel
+CUDA_LANES = 4096
+
 register_backend("interp", InterpBackend())
 register_backend("sim", SimBackend())
-register_backend("cuda", EngineBackend("cuda"))
+register_backend("cuda", EngineBackend("cuda", lanes=CUDA_LANES))
 register_backend("torch", EngineBackend("cpu"))

@@ -12,10 +12,13 @@ engine.  It keeps the reference engine's contract (``repro.ual.engine``):
     CUDA device, its plain PyTorch version on the CPU,
   * ``n_iters`` is a kernel argument, so one launch configuration per
     ``(M, bucket)`` serves every trip count,
-  * batch sizes are padded up a small **bucket ladder** (default
-    ``1, 8, 32, lanes``): variable-sized batches hit warm shapes, and
-    batches beyond the largest bucket run as largest-bucket chunks — the
-    number of distinct shapes stays O(#buckets) however traffic is shaped.
+  * batch sizes are padded up a small **bucket ladder** (default ``1, 8``,
+    then every 4x up to ``lanes``, and ``lanes``: ``1, 8, 32, 128`` at the
+    reference's 128 lanes, ``1, 8, 32, 128, 512, 2048, 4096`` at the
+    ``cuda`` backend's 4096): variable-sized batches hit warm shapes, a
+    batch pads to at most 4x its size, and batches beyond the largest
+    bucket run as largest-bucket chunks — the number of distinct shapes
+    stays O(#buckets) however traffic is shaped.
 
 The first launch of each ``(M, bucket)`` shape counts as a "trace", so
 ``stats()["traces"]`` means what it means on the reference engine: the
@@ -43,9 +46,15 @@ from repro_torch.kernels.cgra_exec import ops
 def bucket_ladder(lanes: int = 128,
                   buckets: Optional[Sequence[int]] = None) -> Tuple[int, ...]:
     """The batch-size ladder: ascending, deduplicated, capped at ``lanes``
-    (one thread block — bigger batches run as largest-bucket chunks)."""
+    (the largest launch — bigger batches run as largest-bucket chunks).
+    The default is 1, 8, then every 4x below ``lanes``, and ``lanes``, so a
+    batch pads to at most 4x its size; up to 128 lanes it is the
+    reference's ``(1, 8, 32, lanes)``."""
     if buckets is None:
-        buckets = (1, 8, 32, lanes)
+        buckets = [1, 8]
+        while buckets[-1] * 4 < lanes:
+            buckets.append(buckets[-1] * 4)
+        buckets.append(lanes)
     ladder = sorted({int(b) for b in buckets if 1 <= int(b) <= lanes})
     if not ladder:
         raise ValueError(f"bucket ladder {buckets!r} has no entry in "

@@ -11,6 +11,10 @@ package's engines, bit-exact (int32 throughout, so the tolerance is 0).
     after a late ``t0``), each held against a numpy statement of the
     semantics and against ``make_cgra_call(..., interpret=True)``; plus the
     combined edge-case table that ``chip_smoke.py`` also runs on the card,
+  * the packed tables the kernel reads (``ops.pack_tables``): expanded
+    back (``ops.unpack_tables``), they read what the dense tables read on
+    every entry the kernel reads, keep the memory PEs' port order, and run
+    to the same images; the launch plan's choice of form by size,
   * the wrapper's argument checks and the kernel library's build rules
     (the kernel itself runs on a card only: ``test_torch_cuda.py``).
 
@@ -30,13 +34,15 @@ from repro.kernels.cgra_exec.kernel import make_cgra_call
 from repro.kernels.cgra_exec.ops import cgra_exec_op as ref_cgra_exec_op
 from repro.kernels.cgra_exec.ref import cgra_exec_ref
 from repro_torch import interop
-from repro_torch.core.lowering import (K_CONST, K_NONE, K_O, LinkedConfig,
-                                       link_config)
+from repro_torch.core.lowering import (K_CONST, K_NONE, K_O, K_R, K_RESULT,
+                                       LinkedConfig, link_config)
 from repro_torch.core.machine import OPC
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.cgra_exec import ops
-from repro_torch.kernels.cgra_exec.edge_cases import (edge_case_config,
-                                                      edge_case_images)
+from repro_torch.kernels.cgra_exec.edge_cases import (LARGE_MIN_WORDS,
+                                                      edge_case_config,
+                                                      edge_case_images,
+                                                      large_state_config)
 from repro_torch.kernels.cgra_exec.ref import cgra_exec_torch, wrap_i32
 
 INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
@@ -352,6 +358,171 @@ def test_edge_case_table_matches_pallas(n_iters):
     mems = edge_case_images(np.random.default_rng(n_iters), 16, 256)
     got = _run_both(linked, mems, n_iters)
     assert (got != mems).any()
+
+
+# ---------------------------------------------------------------------------
+# the packed tables
+# ---------------------------------------------------------------------------
+
+def _source(kind, pe, reg, const, P, R):
+    """Where an operand or register write of the dense tables reads."""
+    if kind == K_O and 0 <= pe < P:
+        return ("O", pe)
+    if kind == K_R and 0 <= _w(pe * R + reg) < P * R:
+        return ("R", _w(pe * R + reg))
+    return ("imm", const if kind == K_CONST else 0)
+
+
+def _reads(scalar, optab, regw, mem_pes):
+    """What the kernel reads of dense tables, slot by slot: for each PE that
+    can fire, its firing offset floor((s - t0) / II), opcode, immediate and
+    the operands it reads (each a source and its loop-carried init, the
+    trailing immediate placed); the memory PEs in port order with their
+    index / second-operand flag; each live register write's source."""
+    II, P, R = scalar.shape[0], scalar.shape[1], regw.shape[2]
+    memory = (OPC["LOAD"], OPC["STORE"])
+    slots = []
+    for s in range(II):
+        pes, mem, rws = {}, [], {}
+        for p in range(P):
+            opc, const, use_c, t0 = (int(v) for v in scalar[s, p])
+            if opc == OPC["NOP"] or t0 < 0:
+                continue
+            kinds = [int(k) for k in optab[s, p, :, 0]]
+            n_ops = sum(k != K_NONE for k in kinds)
+            used = range(3)
+            if opc in memory and p in mem_pes:
+                has = kinds[int(opc == OPC["STORE"])] != K_NONE
+                used = ([0] if has else []) if opc == OPC["LOAD"] else \
+                    ([0, 1] if has else [0])
+            operands = []
+            for k in used:
+                kind, pe, reg, dist, init = (int(v) for v in optab[s, p, k])
+                src = _source(kind, pe, reg, const, P, R)
+                if use_c and kind == K_NONE and n_ops == k:
+                    src, dist = ("imm", const), 0
+                operands.append((k, src, (dist, init) if dist > 0 else None))
+            pes[p] = ((s - t0) // II, opc, const, tuple(operands))
+        for p in mem_pes:
+            opc = int(scalar[s, p, 0])
+            if p in pes and opc in memory:
+                store = int(opc == OPC["STORE"])
+                mem.append((p, int(optab[s, p, store, 0]) != K_NONE))
+        for p in range(P):
+            for r in range(R):
+                kind, sp, reg = (int(v) for v in regw[s, p, r])
+                if kind in (K_O, K_R):
+                    rws[p, r] = _source(kind, sp, reg, 0, P, R)
+                elif kind == K_RESULT and sp in pes:
+                    rws[p, r] = ("result", sp)
+        slots.append((pes, tuple(mem), rws))
+    return slots
+
+
+def _packing_cases():
+    return [*PAPER_KERNELS, "edge_cases", "large_state"]
+
+
+def _linked_for(case):
+    if case == "edge_cases":
+        return edge_case_config(), 256
+    if case == "large_state":
+        return large_state_config(), LARGE_MIN_WORDS
+    program, _, _, linked = _carried(case)
+    return linked, program.layout.total_words
+
+
+@pytest.mark.parametrize("case", _packing_cases())
+def test_packed_tables_expand_to_the_dense_ones(case):
+    """Every entry the kernel reads survives the packing: the packed form,
+    expanded back, reads what the dense tables read, keeps each slot's
+    memory PEs in port order, and runs to the same images."""
+    linked, M = _linked_for(case)
+    packed = ops.pack_tables(linked)
+    scalar, optab, regw, mem_order = ops.unpack_tables(packed)
+    mem_pes = tuple(linked.mem_pes)
+    want = _reads(np.asarray(linked.scalar), np.asarray(linked.ops),
+                  np.asarray(linked.regw), mem_pes)
+    assert _reads(scalar, optab, regw, mem_pes) == want
+    assert mem_order == [tuple(p for p, _ in mem) for _, mem, _ in want]
+    assert packed.n_fire == max(len(pes) for pes, _, _ in want)
+    assert packed.words.dtype == np.int32 and packed.words.size % 4 == 0
+    expanded = LinkedConfig(II=linked.II, n_pes=linked.n_pes,
+                            n_regs=linked.n_regs, mem_pes=mem_pes,
+                            scalar=scalar, ops=optab, regw=regw)
+    mems = edge_case_images(np.random.default_rng(7), 4, max(M, 256))[:, :M]
+    for n in (1, 3):
+        np.testing.assert_array_equal(_torch(expanded, mems, n),
+                                      _torch(linked, mems, n))
+
+
+def test_packing_keeps_port_order_and_drops_idle_entries():
+    """Memory records follow ``mem_pes`` (not PE order) per slot; a
+    LOAD/STORE PE off the ports and an ALU op on a port PE stay ALU
+    records; NOP PEs, t0 < 0 PEs, idle register writes and K_RESULT writes
+    whose source cannot fire pack to nothing."""
+    table = _table([
+        (0, 5, "LOAD", [(K_O, 0)], 4, 0, 0),
+        (0, 1, "STORE", [(K_O, 0), (K_O, 2)], 8, 0, 0),
+        (0, 3, "LOAD", [], 2, 0, 0),
+        (0, 2, "ADD", [(K_O, 2)], 1, 1, 0),       # an ALU op on a port PE
+        (0, 6, "STORE", [(K_O, 2)], 9, 0, 0),     # a store off the ports
+        (0, 4, "LOAD", [], 3, 0, -1),             # never fires
+        (1, 3, "STORE", [(K_O, 3)], 5, 0, 1),
+        (1, 5, "LOAD", [], 6, 0, 1),
+    ], mem_pes=(5, 3, 1, 2, 4), II=2)
+    table.regw[0, 0, 1] = (K_RESULT, 2, 0)        # live
+    table.regw[0, 1, 0] = (K_RESULT, 7, 0)        # source never fires
+    table.regw[1, 4, 1] = (K_R, 6, 1)             # staged
+    packed = ops.pack_tables(table)
+    _, _, _, mem_order = ops.unpack_tables(packed)
+    assert mem_order == [(5, 3, 1), (5, 3)]
+    s0, s1 = packed.slot(0), packed.slot(1)
+    assert [int(p) for p in s0["fire"][:, 0]] == [1, 2, 3, 5, 6]
+    assert sorted(int(s0["fire"][j, 0]) for j in s0["alu"][:, 0]) == [2, 6]
+    assert len(s0["rw"]) == 1 and s0["n_stage"] == 0
+    assert len(s1["rw"]) == 1 and s1["n_stage"] == 1
+    assert packed.n_fire == 5 and packed.n_stage == 1
+    mems = _images(np.random.default_rng(8), 12)
+    np.testing.assert_array_equal(_torch(LinkedConfig(
+        II=2, n_pes=P_SMALL, n_regs=R_SMALL, mem_pes=table.mem_pes,
+        scalar=ops.unpack_tables(packed)[0],
+        ops=ops.unpack_tables(packed)[1],
+        regw=ops.unpack_tables(packed)[2]), mems, 2), _run_both(table, mems, 2))
+
+
+def test_launch_plan_picks_the_form_by_size():
+    """The state goes to shared memory where a group's fits, the tables
+    beside it where they fit too; neither size ever refuses a launch."""
+    small = ops.pack_tables(edge_case_config())
+    plan = ops.plan_launch(small)
+    assert (plan.groups, plan.warps) == (ops.DEFAULT_GROUPS,
+                                         ops.DEFAULT_WARPS)
+    assert plan.state_shared and plan.tables_shared
+    assert plan.smem_bytes == 4 * (small.words.size
+                                   + 32 * small.state_rows)
+    assert plan.lanes == 32 and plan.blocks(4096) == 128
+    assert plan.blocks(33) == 2
+    lane_per_thread = ops.plan_launch(small, 4, 1)
+    assert lane_per_thread.lanes == 128 and lane_per_thread.state_shared
+    # tables that do not fit beside the state are read from global memory
+    tight = ops.plan_launch(small, budget=4 * 32 * small.state_rows + 4)
+    assert tight.state_shared and not tight.tables_shared
+    # fewer groups where a block's state would not fit
+    assert ops.plan_launch(small, 4, 1,
+                           budget=4 * 64 * small.state_rows).groups == 2
+    large = ops.pack_tables(large_state_config())
+    assert 4 * 32 * large.state_rows > ops.SMEM_BUDGET
+    plan = ops.plan_launch(large)
+    assert not plan.state_shared and plan.tables_shared
+    assert plan.smem_bytes == 4 * large.words.size
+    plan = ops.plan_launch(large, budget=4 * large.words.size - 4)
+    assert not plan.state_shared and not plan.tables_shared
+    assert plan.smem_bytes == 0
+    with pytest.raises(ValueError, match="threads"):
+        ops.plan_launch(small, 2, 8)
+    with pytest.raises(ValueError, match="threads"):
+        ops.plan_launch(small, 1, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,9 @@
     across as plain data and seeded into the port's cache under the same
     ``(program.digest, target.digest)`` key,
   * the engine specialises at most one shape per bucket of its ladder,
+    also on a ladder that reaches above 128 lanes (the ``cuda`` backend's
+    reaches 4096), bit-exact against the ``sim`` backend across its
+    bucket edges; each backend's lanes and ladder,
   * a warm compile is a cache hit with zero mapper restarts,
   * the two packages' caches never read each other's entries,
   * the ``cuda`` backend, the default, raises where there is no CUDA device
@@ -23,7 +26,9 @@ from repro_torch import interop
 from repro_torch import ual as tual
 from repro_torch.core.lowering import lowered_fingerprint
 from repro_torch.kernels.cgra_exec import ops
+from repro_torch.core.simulator import simulate_batch
 from repro_torch.ual import cache as port_cache_mod
+from repro_torch.ual.engine import bucket_ladder
 
 
 @pytest.fixture(autouse=True)
@@ -111,6 +116,49 @@ def test_engine_specialises_at_most_one_shape_per_bucket(port_cache, engine):
     assert exe.last_info["traced"] == 0
     assert engine.stats()["traces"] == 4
     assert engine.stats()["engines"] == 1
+
+
+def test_ladder_above_128_lanes_is_bitexact_with_sim(port_cache):
+    """A CPU engine whose ladder reaches above 128 (lanes = 256) pads and
+    chunks batches across every bucket edge, bit-exact against the
+    vectorized simulator, with at most one trace per bucket."""
+    cache = tual.CompiledKernelCache()
+    program = tual.Program.from_kernel("gemm")
+    exe = tual.compile(program, tual.Target.from_name(
+        "hycube", rows=4, cols=4, backend="torch"))
+    rng = np.random.default_rng(11)
+    used = []
+    for B in (1, 127, 129, 255, 256, 257, 600):
+        flats = program.flatten_batch([program.random_inputs(rng)
+                                       for _ in range(B)])
+        out, info = cache.run(exe.lowered, flats, program.n_iters,
+                              lanes=256, device="cpu")
+        want, _ = simulate_batch(exe.lowered, flats, program.n_iters)
+        np.testing.assert_array_equal(out, want)
+        assert sum(info["buckets"]) - info["padded"] == B
+        used += info["buckets"]
+    stats = cache.engine_for(exe.lowered, lanes=256, device="cpu").stats()
+    assert stats["buckets"] == (1, 8, 32, 128, 256)
+    assert used == [1, 128, 256, 256, 256, 256, 1, 256, 256, 128]
+    assert stats["traces"] == len(stats["warm_shapes"]) == 3
+    assert stats["bucket_calls"] == {1: 2, 128: 2, 256: 6}
+
+
+def test_backend_lanes_and_ladders():
+    """The ``cuda`` backend launches a run_batch of 4096 at once, on a
+    ladder that pads a batch to at most 4x its size; the CPU engine keeps
+    the reference's ladder.  Both read without a card."""
+    cuda, cpu = tual.get_backend("cuda"), tual.get_backend("torch")
+    assert (cuda.lanes, cuda.device) == (4096, "cuda")
+    assert bucket_ladder(cuda.lanes) == (1, 8, 32, 128, 512, 2048, 4096)
+    assert (cpu.lanes, cpu.device) == (128, "cpu")
+    assert bucket_ladder(cpu.lanes) == (1, 8, 32, 128)
+    ladder = bucket_ladder(cuda.lanes)
+    assert all(min(x for x in ladder if x >= b) <= 4 * b
+               for b in range(1, cuda.lanes + 1))
+    assert bucket_ladder(256) == (1, 8, 32, 128, 256)
+    assert bucket_ladder(16) == (1, 8, 16)
+    assert bucket_ladder(4096, (1, 64, 9000)) == (1, 64)
 
 
 def test_warm_compile_is_a_cache_hit(tmp_path):
