@@ -51,13 +51,19 @@ Each phase prints one JSON line:
                    dropped at one chunk boundary; the carried state's decay
                    left out of every update) that the bound must catch,
                    kernel and plain ms, the bound
-  wkv              per case: the RWKV-6 WKV kernel vs its plain version
-                   (the same per-element bounds) on decays of the model's
-                   own slow range, under which the state carries across
-                   chunks, three planted faults (the state dropped at one
-                   chunk boundary; its decayed term left out of every
-                   update; the u bonus left out) that the bound must catch,
-                   kernel and plain ms, the bound
+  wkv              per case (bf16: the tensor-core form, chunks of 64;
+                   f32: the CUDA-core form, chunks of 32): the RWKV-6 WKV
+                   kernel vs its plain version (the same per-element bounds)
+                   on decays of the model's own slow range, under which the
+                   state carries across chunks, three planted faults (the
+                   state dropped at one boundary of the form's chunks; its
+                   decayed term left out of every update; the u bonus left
+                   out) that the bound must catch, kernel and plain ms, the
+                   bound; then one ``geometry`` line per geometry of the
+                   bf16 form: ms at rwkv6-1.6b's prefill shape at B = 2 and
+                   B = 1, and at B = 2 with every log_w at the model's clamp
+                   (the diagonal sub-blocks per (t, i, d)), each checked
+                   against the plain version
   lm_prefill       per model, in bf16, B = 2 x 2048 tokens: wall ms, kernel
                    launches, peak memory; the kernel path vs the plain
                    path in f32 (checked) and in bf16, each vs the f32 model
@@ -954,13 +960,56 @@ def wkv_window(r, k, v, log_w, u):
     return run
 
 
-def wkv_phases(dev) -> dict:
+#: the two forms of the WKV kernel: (kernel name, source)
+WKV_FORMS = {
+    "bfloat16": ("wkv6_kernel_wgmma", "src/repro_torch/kernels/rwkv6/csrc/"
+                 "wkv6_wgmma.cu"),
+    "float32": ("wkv6_kernel", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu"),
+}
+
+
+def wkv_geometries(dev) -> None:
+    """One ``geometry`` line per geometry of the bf16 WKV form: its ms at
+    rwkv6-1.6b's prefill shape (H = 32, K = 64, S = 2048, mixed decays) at
+    B = 2 and B = 1, and at B = 2 with every log_w at the model's clamp,
+    where every sub-chunk's cum falls past the form's range and the diagonal
+    sub-blocks are formed per (t, i, d); each output checked against the
+    plain version."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.kernels.rwkv6.ref import wkv6_torch
+    from repro_torch.models.rwkv6 import LOG_W_MIN
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    inputs = {f"B{B}": wkv_inputs(gen, B, 2048, 32, 64, torch.bfloat16,
+                                  "mixed") for B in (2, 1)}
+    r, k, v, log_w, u = inputs["B2"]
+    inputs["B2_clamp"] = (r, k, v, torch.full_like(log_w, LOG_W_MIN), u)
+    for geometry in ops.GEOMETRIES:
+        row = {"kernel": "rwkv6", "geometry": geometry,
+               "kept": geometry == ops.KEPT, "log_w_clamp": LOG_W_MIN}
+        for key, args in inputs.items():
+            over = excess(ops.wkv6(*args, geometry=geometry),
+                          wkv6_torch(*args, chunk=ops.CHUNK), "bfloat16")
+            check(over <= 0, f"wkv geometry {geometry}, {key}: beyond the "
+                             f"bound by {over}")
+            row[f"ms_{key}"], _ = time_ms(
+                lambda: ops.wkv6(*args, geometry=geometry), reps=10,
+                warmup=2)
+            row[f"excess_{key}"] = over
+        emit("geometry", **row)
+
+
+def wkv_phases(dev, sass) -> dict:
     """The RWKV-6 WKV kernel against its plain version on every case, with
-    the planted faults ``dropped_state`` (at the middle chunk boundary),
-    ``undecayed_state`` (``undecayed``) and ``no_bonus`` (u = 0) held to the
-    same bound (each must fail it), the kernel's time, the plain version's
-    and the bound.  Returns the kernel's summary entry, less the main path's
-    launches."""
+    the planted faults ``dropped_state`` (at the middle boundary of the
+    form's chunks), ``undecayed_state`` (``undecayed``, over the form's
+    chunks) and ``no_bonus`` (u = 0) held to the same bound (each must fail
+    it), the kernel's time, the plain version's and the bound; then the bf16
+    form's geometries (``wkv_geometries``).  Returns the kernel's summary
+    entry, less the main path's launches; it names both forms
+    (``WKV_FORMS``, ``kernel_forms``)."""
     import torch
 
     from repro_torch.kernels.rwkv6 import ops
@@ -973,14 +1022,16 @@ def wkv_phases(dev) -> dict:
     for name, B, S, H, K, dt_name, decay in WKV_CASES:
         args = wkv_inputs(gen, B, S, H, K, getattr(torch, dt_name), decay)
         r, k, v, log_w, u = args
-        at = ((S - 1) // CHUNK + 1) // 2 * CHUNK
+        # the faults a kernel could make: at its own chunks' boundaries
+        chunk = ops.FORM_CHUNK[getattr(torch, dt_name)]
+        at = ((S - 1) // chunk + 1) // 2 * chunk
         check(0 < at < S, f"wkv {name}: S = {S} has no chunk boundary")
         run = wkv_window(*args)
         res = check_case(
             "wkv", name, dt_name, lambda: ops.wkv6(*args),
             lambda: wkv6_torch(*args, chunk=CHUNK),
             {"dropped_state": lambda: (run(slice(at, None)), at),
-             "undecayed_state": lambda: (undecayed(run, S, CHUNK), 0),
+             "undecayed_state": lambda: (undecayed(run, S, chunk), 0),
              "no_bonus": lambda: (wkv6_torch(r, k, v, log_w,
                                              torch.zeros_like(u),
                                              chunk=CHUNK), 0)})
@@ -988,22 +1039,24 @@ def wkv_phases(dev) -> dict:
         b_ms, b_by, flops, nbytes = wkv_bound(B, S, H, K, dt_name)
         rows[name] = row = {
             "case": name, "B": B, "S": S, "H": H, "K": K, "dtype": dt_name,
-            "decay": decay, "fault_at": at, **res, "library_ms": None,
+            "decay": decay, "chunk": chunk, "fault_at": at, **res,
+            "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
             "bytes": nbytes, "tflop_s": flops / res["ms"] / 1e9,
             "gb_s": nbytes / res["ms"] / 1e6}
         emit("wkv", **row)
+    wkv_geometries(dev)
     lead = rows["rwkv6-prefill"]
+    forms = kernel_forms(WKV_FORMS, rows, "rwkv6-prefill", sass)
     return {
-        "name": "rwkv6", "route": "cuda",
-        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        "name": "rwkv6", "route": "cuda", "source": WKV_FORMS["bfloat16"][1],
         "replaces": "src/repro/kernels/rwkv6/kernel.py:24",
         "launches": None, "max_abs_err": max_err,
         "ms": lead["ms"], "plain_ms": lead["plain_ms"],
         "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
         "library_ms": None,
         "shape": "rwkv6-1.6b prefill WKV: B=2, S=2048, H=32, K=64, bf16 "
-                 "r/k/v/u, f32 log_w"}
+                 "r/k/v/u, f32 log_w", "forms": forms}
 
 
 def to_f32(tree):
@@ -1264,7 +1317,7 @@ def main(argv=None) -> int:
     cgra = cgra_phases(dev, np.random.default_rng(args.seed))
     flash = flash_phases(dev, sass["flash_attention"])
     ssd = ssd_phases(dev, sass["mamba2_ssd"])
-    wkv = wkv_phases(dev)
+    wkv = wkv_phases(dev, sass["rwkv6"])
     launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0}
     for arch in LM_ARCHS:
         for k, n in lm_phases(dev, args.seed, arch).items():

@@ -1,7 +1,7 @@
 // hopper.cuh: the Hopper pieces the port's tensor-core kernels share
-// (flash_attention_wgmma.cu, mamba2_ssd_wgmma.cu): mbarriers, TMA loads and
-// tensor maps, shared-memory descriptors, fences and wgmma in bf16 with f32
-// accumulators.  sm_90a only.  A kernel library that includes this header
+// (flash_attention_wgmma.cu, mamba2_ssd_wgmma.cu, wkv6_wgmma.cu): mbarriers,
+// named barriers, TMA loads and tensor maps, shared-memory descriptors,
+// fences and wgmma in bf16 with f32 accumulators.  sm_90a only.  A kernel library that includes this header
 // lists it among its SOURCES, so that an edit here rebuilds it
 // (repro_torch/kernels/build.py hashes every source into the library's name).
 //
@@ -34,13 +34,36 @@ __device__ __forceinline__ uint32_t swz(int row, int chunk) {
     return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-                 "r"(1));
+                 "r"(count));
 }
 
 __device__ __forceinline__ void mbar_init_fence() {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival (a barrier initialised with count 1 completes its phase)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+                 : "memory");
+}
+
+// a barrier of `threads` threads (whole warps) of the block, by id (0 is
+// __syncthreads')
+__device__ __forceinline__ void named_bar(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// named_bar that also returns whether q was true in any of its threads
+__device__ __forceinline__ bool named_bar_or(int id, int threads, bool q) {
+    uint32_t any;
+    asm volatile(
+        "{\n.reg .pred q, p;\nsetp.ne.u32 q, %1, 0;\n"
+        "barrier.red.or.pred p, %2, %3, q;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(any)
+        : "r"(static_cast<uint32_t>(q)), "r"(id), "r"(threads)
+        : "memory");
+    return any != 0;
 }
 
 __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
@@ -64,6 +87,59 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
             : "r"(bar), "r"(parity)
             : "memory");
     } while (!done);
+}
+
+// mbar_wait whose acquire reaches the whole cluster: for a barrier that
+// blocks of the cluster arrive on after writing this block's shared memory
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+    uint32_t done, spins = 0;
+    do {
+        if (++spins == (1u << 26)) __trap();
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+            "[%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// Thread-block clusters: this block's rank, the shared::cluster address of
+// a shared-memory location (addr, this block's) in block `rank`, a 16-byte
+// store and an mbarrier arrival there (releasing this thread's writes, and
+// those ordered before them, to the cluster), and a barrier of all the
+// cluster's threads
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(r)
+                 : "r"(addr), "r"(rank));
+    return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint4 v) {
+    asm volatile(
+        "st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+        "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+        : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+    asm volatile(
+        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+        ::"r"(addr)
+        : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile(
+        "barrier.cluster.arrive.release.aligned;\n"
+        "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // one box of a 3-D or 4-D map into shared memory at dst, completing bar
@@ -133,6 +209,18 @@ __device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t* r) {
         : "memory");
 }
 
+// stmatrix_x4 with each matrix stored transposed: r[j]'s elements (l / 4,
+// 2 (l % 4)) and (l / 4, 2 (l % 4) + 1) of matrix j land in its rows
+// 2 (l % 4) and 2 (l % 4) + 1, column l / 4; lane l gives the address of
+// row l % 8 of matrix l / 8, as stored
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr,
+                                                  const uint32_t* r) {
+    asm volatile(
+        "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+        "%4};\n" ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+        : "memory");
+}
+
 // a wgmma shared-memory descriptor, 128-byte swizzle; lbo and sbo in bytes
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
@@ -146,6 +234,10 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
 // (the async proxy); a barrier must follow before they read
 __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the same for plain stores into the shared memory of the cluster's blocks
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+    asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -197,8 +289,19 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
 // d holds the thread's N / 2 accumulators
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b) {
-    static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
-    if constexpr (N == 64) {
+    static_assert(N == 32 || N == 64 || N == 128,
+                  "wgmma_ss: N is 32, 64 or 128");
+    if constexpr (N == 32) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+            "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+    } else if constexpr (N == 64) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -336,23 +439,30 @@ inline EncodeTiled encode_tiled() {
     return fn;
 }
 
-// a bf16 map of `rank` dims (innermost first; strides in bytes of dims 1..),
-// boxes of `box` elements, 128-byte swizzled, zero-filled past the edges;
-// 0 or -(the CUresult) (-1 without the encoder)
-inline int make_map_bf16(CUtensorMap* map, const void* ptr, int rank,
-                         const cuuint64_t* dims, const cuuint64_t* strides,
-                         const cuuint32_t* box) {
+// a map of `rank` dims of `type` (innermost first; strides in bytes of
+// dims 1..), boxes of `box` elements, with the given swizzle, zero-filled
+// past the edges; 0 or -(the CUresult) (-1 without the encoder)
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
+                    const void* ptr, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box,
+                    CUtensorMapSwizzle swizzle) {
     const EncodeTiled fn = encode_tiled();
     if (fn == nullptr) return -1;
     const cuuint32_t step[5] = {1, 1, 1, 1, 1};
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                          static_cast<cuuint32_t>(rank),
+    const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
                           const_cast<void*>(ptr), dims, strides, box, step,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+// a bf16 map, 128-byte swizzled (the tiles the descriptors above describe)
+inline int make_map_bf16(CUtensorMap* map, const void* ptr, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
+    return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

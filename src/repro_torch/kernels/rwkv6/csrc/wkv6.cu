@@ -1,7 +1,11 @@
 // rwkv6 wkv6: the chunked RWKV-6 (Finch) WKV with a per-channel,
-// data-dependent decay.  CUDA C++ for sm_90a, built with nvcc into a shared
-// library with a plain C entry point (repro_torch/kernels/build.py) and
-// bound with ctypes (repro_torch/kernels/rwkv6/ops.py).
+// data-dependent decay.  CUDA C++ for sm_90a, built with nvcc, together with
+// wkv6_wgmma.cu, into a shared library with a plain C entry point
+// (repro_torch/kernels/build.py) and bound with ctypes
+// (repro_torch/kernels/rwkv6/ops.py).  This file holds the entry point and
+// the f32 form on the CUDA cores (kernel wkv6_kernel); the entry point sends
+// bf16 to the tensor-core form in wkv6_wgmma.cu (kernel wkv6_kernel_wgmma),
+// each dtype to its own form, with no fallback between them.
 //
 // Replaces the TPU kernel src/repro/kernels/rwkv6/kernel.py::_wkv6_kernel
 // (wrapper wkv6).  It computes the same function: r, k, v (B, S, H, K),
@@ -20,17 +24,18 @@
 // (t, i, d) and only where i < t (above the diagonal it is replaced by -inf
 // before the exp): with log_w >= -8 a chunk's cum reaches -256, so factoring
 // it as exp(cum_{t-1}) * exp(-cum_i) overflows f32.  That is why A is not one
-// matrix product: L (L - 1) / 2 * K = 31,744 exps per chunk and head.  The
+// matrix product here: L (L - 1) / 2 * K = 31,744 exps per chunk and head
+// (wkv6_wgmma.cu factors it by sub-chunks, every exponent <= 0).  The
 // ragged final chunk is masked in the kernel (zeros staged past the end,
 // which add nothing, and no row written past S), not padded on the host.
 //
-// What bounds it on an H100 SXM (NVIDIA data sheet): bytes.  At rwkv6-1.6b's
-// prefill (B = 2, S = 2048, H = 32, K = 64, bf16 r, k, v, o, f32 log_w) the
-// tensors are 100.7 MB, 30 us at 3.35 TB/s, against about 2.7 GFLOP of
-// products, 3 us at 989 TFLOP/s.
+// What bounds the f32 form on an H100 SXM (NVIDIA data sheet): bytes.  At
+// rwkv6-1.6b's prefill shape in f32 (B = 2, S = 2048, H = 32, K = 64) the
+// tensors are 168 MB, 50 us at 3.35 TB/s, against about 2.7 GFLOP of
+// products, 40 us at 67 TFLOP/s.
 //
-// What the design does about it, so far: this first form is simple and
-// right, and leaves the tensor cores unused (wgmma and TMA are later work).
+// What the design does about it: this form, the port's first, is simple and
+// right, and leaves the tensor cores unused (f32 runs in full f32).
 // A block of 256 threads owns one (batch, head) and 32 of its K value
 // columns, and walks the chunks in order, the counterpart of the TPU
 // kernel's sequential chunk axis with the state in VMEM: here its (K, 32)
@@ -51,7 +56,6 @@
 // then r and k are scaled in place and each thread holds a 2 x 2 block of o
 // and a 4 x 2 block of the state update in registers.  About 42 KB of
 // shared memory a block, under the 48 KB default.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -78,19 +82,6 @@ constexpr int kVPerThread = kL * kVC / kThreads;
 static_assert(kPerThread * kThreads == kL * kMaxK
               && kVPerThread * kThreads == kL * kVC, "uneven staging");
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-    return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);   // round to nearest even, as torch's cast
-}
 
 // 2^x in one MUFU.EX2, with results below 2^-126 (terms under 1e-38) flushed
 // to zero: exp2f and __expf add a fix-up for them on every call
@@ -124,11 +115,10 @@ __device__ __forceinline__ void a_row(const float* Rs, const float* Ks,
     }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
-            const T* __restrict__ v, const float* __restrict__ lw,
-            const float* __restrict__ u, T* __restrict__ o, int S, int H,
+wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ lw,
+            const float* __restrict__ u, float* __restrict__ o, int S, int H,
             int K, long long srb, long long srs, long long srh,
             long long skb, long long sks, long long skh, long long svb,
             long long svs, long long svh, long long swb, long long sws,
@@ -147,12 +137,12 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     const int c0 = blockIdx.y * kVC;  // this block's first value column
     const int nc = min(kVC, K - c0);
     const int tid = threadIdx.x;
-    const T* rg = r + b * srb + h * srh;
-    const T* kg = k + b * skb + h * skh;
-    const T* vg = v + b * svb + h * svh + c0;
+    const float* rg = r + b * srb + h * srh;
+    const float* kg = k + b * skb + h * skh;
+    const float* vg = v + b * svb + h * svh + c0;
     const float* wg = lw + b * swb + h * swh;
     const size_t os = static_cast<size_t>(H) * K;
-    T* og = o + static_cast<size_t>(b) * S * os + static_cast<size_t>(h) * K
+    float* og = o + static_cast<size_t>(b) * S * os + static_cast<size_t>(h) * K
             + c0;
 
     // A: row at, columns ai + 8 j (j < 4); the rows of a warp are
@@ -180,8 +170,8 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
             const int t = idx / kMaxK, d = idx % kMaxK;
             const bool in = t < len && d < K;
             const long long s = s0 + t;
-            pr[n] = in ? to_f32(rg[s * srs + d]) : 0.f;
-            pk[n] = in ? to_f32(kg[s * sks + d]) : 0.f;
+            pr[n] = in ? rg[s * srs + d] : 0.f;
+            pk[n] = in ? kg[s * sks + d] : 0.f;
             pw[n] = in ? wg[s * sws + d] * kLog2e : 0.f;
         }
 #pragma unroll
@@ -189,7 +179,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
             const int idx = tid + n * kThreads;
             const int t = idx / kVC, j = idx % kVC;
             pv[n] = t < len && j < nc
-                ? to_f32(vg[static_cast<long long>(s0 + t) * svs + j]) : 0.f;
+                ? vg[static_cast<long long>(s0 + t) * svs + j] : 0.f;
         }
     };
 
@@ -293,7 +283,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
                     const int col = tx + 16 * q;
                     if (col < nc)
                         og[static_cast<size_t>(s0 + t) * os + col] =
-                            from_f32<T>(acc[p][q]);
+                            acc[p][q];
                 }
             }
         }
@@ -331,15 +321,14 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     }
 }
 
-template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* lw,
            const void* u, void* o, int B, int S, int H, int K,
            const long long* st, cudaStream_t stream) {
     const dim3 grid(B * H, (K + kVC - 1) / kVC);
-    wkv6_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-        static_cast<const T*>(r), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(lw),
-        static_cast<const float*>(u), static_cast<T*>(o), S, H, K, st[0],
+    wkv6_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+        static_cast<const float*>(r), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(lw),
+        static_cast<const float*>(u), static_cast<float*>(o), S, H, K, st[0],
         st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
         st[10], st[11]);
     return static_cast<int>(cudaGetLastError());
@@ -347,21 +336,31 @@ int launch(const void* r, const void* k, const void* v, const void* lw,
 
 }  // namespace
 
-// dtype 0: r, k, v, o in f32; 1: bf16.  log_w and u are f32, u contiguous
-// (H, K), o contiguous (B, S, H, K).  strides (in elements): the batch, step
-// and head strides of r, k, v and log_w, in that order (the last axis of
-// each is contiguous).  Returns a cudaError_t code, 0 on success.
+// the bf16 form (wkv6_wgmma.cu)
+int wkv6_wgmma_launch(const void* r, const void* k, const void* v,
+                      const void* log_w, const void* u, void* o, int B, int S,
+                      int H, int K, const long long* st, int form,
+                      cudaStream_t stream);
+
+// dtype 0: r, k, v, o in f32 (the CUDA-core form, form 0 only); 1: bf16 (the
+// tensor-core form; form picks its geometry, 0 the kept one, see
+// wkv6_wgmma_launch).  log_w and u are f32, u contiguous (H, K).  strides
+// (in elements): the batch, step and head strides of r, k, v and log_w, in
+// that order (the last axis of each is contiguous).  f32: o contiguous (B,
+// S, H, K); bf16: o contiguous (B, S, H, K rounded up to 8).  Returns a
+// cudaError_t code, 0 on success, or -(a CUresult) when the bf16 form
+// cannot make a tensor map.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* log_w, const void* u, void* o,
                            int dtype, int B, int S, int H, int K,
-                           const long long* strides, void* stream) {
+                           const long long* strides, int form, void* stream) {
     if (B < 1 || S < 1 || H < 1 || K < 1 || K > kMaxK)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0)
-        return launch<float>(r, k, v, log_w, u, o, B, S, H, K, strides, s);
+    if (dtype == 0 && form == 0)
+        return launch(r, k, v, log_w, u, o, B, S, H, K, strides, s);
     if (dtype == 1)
-        return launch<__nv_bfloat16>(r, k, v, log_w, u, o, B, S, H, K,
-                                     strides, s);
+        return wkv6_wgmma_launch(r, k, v, log_w, u, o, B, S, H, K, strides,
+                                 form, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

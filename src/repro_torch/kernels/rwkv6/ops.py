@@ -1,9 +1,12 @@
 """Public wrapper of the hand-written RWKV-6 WKV kernel.
 
-``wkv6(r, k, v, log_w, u)`` launches the kernel (``csrc/wkv6.cu``) when the
-tensors lie on a CUDA device and raises if it cannot; only CPU tensors go to
-the plain PyTorch version (``ref.wkv6_torch``).  Every launch adds one to
-the module's launch count (``launches()``), so a run can show that it went
+``wkv6(r, k, v, log_w, u)`` launches the kernel when the tensors lie on a
+CUDA device and raises if it cannot: bf16 runs the tensor-core form
+(``csrc/wkv6_wgmma.cu``: wgmma and TMA, kernel ``wkv6_kernel_wgmma``), f32
+the CUDA-core form (``csrc/wkv6.cu``, kernel ``wkv6_kernel``, whose C entry
+point picks the form by dtype).  Only CPU tensors go to the plain PyTorch
+version (``ref.wkv6_torch``).  Every call that launches adds one to the
+module's launch count (``launches()``), so a run can show that it went
 through the kernel.
 """
 from __future__ import annotations
@@ -14,17 +17,37 @@ import threading
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.rwkv6.ref import wkv6_torch
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "wkv6.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: the two forms' sources and the Hopper header the bf16 form includes
+SOURCES = (_CSRC / "wkv6.cu", _CSRC / "wkv6_wgmma.cu",
+           _CSRC.parents[1] / "csrc" / "hopper.cuh")
 #: the dtypes of r, k, v and o the kernel takes, by the code its C entry
 #: point reads (log_w and u are handed over in f32)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel's chunk length (fixed in csrc/wkv6.cu) and its widest head
+#: the plain version's chunk length on the CPU (the reference's), and each
+#: form's own (fixed in its source): the f32 form's 32, the bf16 form's 64
+#: (four sub-chunks of 16, wgmma's rows)
 CHUNK = 32
+FORM_CHUNK = {torch.float32: 32, torch.bfloat16: 64}
 MAX_HEAD = 64
+#: the bf16 form's geometries, by the code its C entry point reads: value
+#: columns a block ("n64": one block a (batch, head); "n32": two, each
+#: forming all of A; "n32x2": two as one cluster that forms A once between
+#: them) and how A's diagonal sub-blocks are formed where a sub-chunk's
+#: decay falls past the form's range (running products of the steps'
+#: decays, or one ex2 a (t, i, d)).  The entry point runs KEPT unless asked
+#: for another (``wkv6(..., geometry=...)``)
+GEOMETRIES = {"n64-products": 1, "n64-ex2": 2, "n32-products": 3,
+              "n32-ex2": 4, "n32x2-products": 5}
+KEPT = "n32-products"
+#: the bf16 form's TMA reads tensors that start on 16 bytes and whose strides
+#: (but the last) are multiples of 16 bytes
+TMA_ALIGN = 16
 
 _launches = 0
 _count_lock = threading.Lock()
@@ -51,9 +74,10 @@ def build() -> Path:
 def _launcher():
     """The library's C entry point, built and loaded once per process."""
     fn = _build.load("rwkv6", SOURCES, {}).wkv6_launch
-    # r, k, v, log_w, u, o; dtype, B, S, H, K; strides; stream
+    # r, k, v, log_w, u, o; dtype, B, S, H, K; strides; form; stream
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,17 +104,35 @@ def _check(r, k, v, log_w, u):
     return B, S, H, K
 
 
+def _tma_readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the bf16 form's TMA can read it as it lies, else a
+    contiguous copy with its last axis zero-padded to 16 bytes (the kernel
+    still reads only the first ``t.shape[-1]`` columns)."""
+    size = t.element_size()
+    if t.data_ptr() % TMA_ALIGN == 0 and all(
+            st * size % TMA_ALIGN == 0 for st in t.stride()[:-1]):
+        return t
+    return F.pad(t, (0, -t.shape[-1] % (TMA_ALIGN // size))).contiguous()
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         log_w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Chunked WKV6 over chunks of ``CHUNK`` steps.  r, k, v, log_w: (B, S,
-    H, K), log_w <= 0 the per-channel log decay; u: (H, K), the bonus.
-    Returns o: (B, S, H, K) in r's dtype, rounded once.
+         log_w: torch.Tensor, u: torch.Tensor,
+         geometry: str | None = None) -> torch.Tensor:
+    """Chunked WKV6.  r, k, v, log_w: (B, S, H, K), log_w <= 0 the
+    per-channel log decay; u: (H, K), the bonus.  Returns o: (B, S, H, K)
+    in r's dtype, rounded once.
 
     On CUDA tensors this launches the kernel on the current stream, without
     synchronising, or raises: r, k and v share one dtype of f32 or bf16,
     log_w is f32 or r's dtype, K is at most 64, and the last axis of r, k, v
-    and log_w is contiguous (other strides are read as they are).  CPU
-    tensors run the plain version."""
+    and log_w is contiguous (other strides are read as they are).  bf16
+    runs the tensor-core form over chunks of 64 (``geometry``, a key of
+    ``GEOMETRIES``, picks its geometry; None the kept one), whose TMA reads
+    tensors that start on 16 bytes with every other stride a multiple of
+    16 bytes: an r, k, v or log_w that is not so (an odd offset, a head of
+    12) is copied first, contiguous and zero-padded (``_tma_readable``), and
+    still runs that form.  f32 runs the CUDA-core form over chunks of 32.
+    CPU tensors run the plain version over chunks of ``CHUNK``."""
     global _launches
     B, S, H, K = _check(r, k, v, log_w, u)
     if r.device.type == "cpu":
@@ -108,8 +150,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"K = {K} must be at most {MAX_HEAD}")
     if any(t.stride(-1) != 1 for t in (r, k, v, log_w)):
         raise ValueError("r, k, v and log_w need a contiguous last axis")
+    bf16 = r.dtype == torch.bfloat16
+    if geometry is not None and (not bf16 or geometry not in GEOMETRIES):
+        raise ValueError(f"geometry {geometry!r}: the bf16 form takes one of "
+                         f"{sorted(GEOMETRIES)}, the f32 form none")
     log_w, u = log_w.float(), u.float().contiguous()
-    o = torch.empty((B, S, H, K), dtype=r.dtype, device=r.device)
+    if bf16:
+        r, k, v, log_w = map(_tma_readable, (r, k, v, log_w))
+    # the bf16 form stores o with TMA: rows of a multiple of 16 bytes
+    KO = K + (-K % (TMA_ALIGN // 2)) if bf16 else K
+    o = torch.empty((B, S, H, KO), dtype=r.dtype, device=r.device)
     strides = (ctypes.c_longlong * 12)(
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *log_w.stride()[:3])
@@ -118,9 +168,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
                  u.data_ptr(), o.data_ptr(), DTYPES[r.dtype], B, S, H, K,
-                 strides, stream)
+                 strides, GEOMETRIES.get(geometry, 0), stream)
+    if err < 0:
+        raise RuntimeError(f"rwkv6 wkv6: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {-err}; 1 also when libcuda has no "
+                           f"such entry point)")
     if err != 0:
         raise RuntimeError(f"rwkv6 wkv6 launch failed: CUDA error {err}")
     with _count_lock:
         _launches += 1
-    return o
+    return o if KO == K else o[..., :K].contiguous()

@@ -21,6 +21,7 @@ only the port is installed:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.rwkv6 import ops
@@ -384,6 +385,172 @@ def test_decode_steps_continue_the_prefill():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 tensor-core form's arithmetic, on the CPU
+# ---------------------------------------------------------------------------
+
+#: the bf16 form's chunk (``csrc/wkv6_wgmma.cu``, as ``ops.FORM_CHUNK``
+#: states it) and the sub-chunk of its intra-chunk products
+WG_CHUNK, WG_SUB = ops.FORM_CHUNK[torch.bfloat16], 16
+#: the f32 operands the bf16 form splits into bf16 hi + lo: "R" and "Kt",
+#: the two sides of A's off-diagonal sub-blocks (r and k scaled from the
+#: sub-chunk's reference point), "A" (A v), "rt" (r exp(cum_ex), the left
+#: side of o_state), "S" (the carried state) and "kdec" (the state
+#: update's left side)
+SPLIT = ("R", "Kt", "A", "rt", "S", "kdec")
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+def kernel_rounding(r, k, v, log_w, u, split=SPLIT, exact=False):
+    """The bf16 tensor-core form's arithmetic on the CPU, chunk by chunk
+    (chunks of ``WG_CHUNK``): A's sub-blocks below the diagonal (sub-chunks
+    of ``WG_SUB``) as products of r_t exp(cum_ex_t - c_j) and k_i exp(c_j -
+    cum_i), c_j the cum of sub-chunk j's last step, both exponents <= 0;
+    the four diagonal sub-blocks per (t, i, d) with the u bonus on the
+    diagonal; o = r exp(cum_ex) S + A v; S <- exp(cum_L) S + kdec^T v.
+    Every product takes bf16 operands and sums in f32: r, k and v are bf16
+    already, and each f32 operand enters as bf16 hi + lo (hi = bf16(x),
+    lo = bf16(x - hi); the product of two split operands drops lo * lo)
+    where ``split`` names it and rounded once to bf16 where it does not.
+    The output is rounded once to r's dtype.  With ``exact`` nothing is
+    rounded (the factorisation alone, in f32, output in f32)."""
+    B, S, H, K = r.shape
+    L = WG_CHUNK
+    n = -(-S // L)
+    pad = n * L - S
+
+    def padc(x):
+        return F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(B, n, L, H, K)
+    rc, kc, vc, lwc = map(padc, (r, k, v, log_w))
+    uf = u.float()
+
+    def parts(x, name):
+        if exact:
+            return (x,)
+        hi = _bf16(x)
+        return (hi, _bf16(x - hi)) if name in split else (hi,)
+
+    def prod(eq, a, a_name, b, b_name):
+        pa, pb = parts(a, a_name), parts(b, b_name)
+        return sum(torch.einsum(eq, x, y) for m, x in enumerate(pa)
+                   for q, y in enumerate(pb) if m + q < 2)
+
+    tri = torch.tril(torch.ones((WG_SUB, WG_SUB), dtype=torch.bool),
+                     -1)[None, :, :, None, None]
+    eye = torch.eye(WG_SUB)[None, :, :, None]
+    state = torch.zeros((B, H, K, K))
+    outs = []
+    for c in range(n):
+        rb, kb, vb, lwb = rc[:, c], kc[:, c], vc[:, c], lwc[:, c]
+        cum = torch.cumsum(lwb, dim=1)                      # (B, L, H, K)
+        cum_ex = cum - lwb
+        o = prod("blhk,bhkv->blhv", rb * torch.exp(cum_ex), "rt", state,
+                 "S")
+        a = torch.zeros((B, L, L, H))
+        for j in range(L // WG_SUB - 1):                     # below the diagonal
+            cols = slice(WG_SUB * j, WG_SUB * (j + 1))
+            rows = slice(WG_SUB * (j + 1), L)
+            ref = cum[:, WG_SUB * (j + 1) - 1][:, None]     # c_j
+            a[:, rows, cols] = prod(
+                "bthk,bihk->btih", rb[:, rows] * torch.exp(cum_ex[:, rows]
+                                                           - ref), "R",
+                kb[:, cols] * torch.exp(ref - cum[:, cols]), "Kt")
+        for p in range(L // WG_SUB):                         # the diagonal
+            sl = slice(WG_SUB * p, WG_SUB * (p + 1))
+            expo = cum_ex[:, sl, None] - cum[:, None, sl]
+            expo = torch.where(tri, expo, float("-inf"))
+            a[:, sl, sl] = (rb[:, sl, None] * kb[:, None, sl]
+                            * torch.exp(expo)).sum(-1) \
+                + eye * (rb[:, sl] * uf * kb[:, sl]).sum(-1)[:, :, None]
+        outs.append(o + prod("btih,bihv->bthv", a, "A", vb, "v"))
+        kdec = kb * torch.exp(cum[:, -1:] - cum)
+        state = state * torch.exp(cum[:, -1])[..., None] + prod(
+            "bihk,bihv->bhkv", kdec, "kdec", vb, "v")
+    out = torch.stack(outs, dim=1).reshape(B, n * L, H, K)[:, :S]
+    return out if exact else out.to(r.dtype)
+
+
+def _outside(got, want):
+    """How many elements of ``got`` lie outside ``KERNEL_TOL[bf16]`` of
+    ``want``."""
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    want = want.float()
+    return int(((got.float() - want).abs() > atol + rtol * want.abs()).sum())
+
+
+#: rwkv6-1.6b's prefill shape: B = 2 prompts of 2048 steps, 32 heads of 64
+PREFILL = (2, 2048, 32, 64)
+
+
+@pytest.mark.parametrize("decay", DECAYS)
+def test_kernel_rounding_meets_the_kernel_bound(decay):
+    """With the operands of ``SPLIT`` each split into bf16 hi + lo, the
+    bf16 form's arithmetic stays within ``KERNEL_TOL[bf16]`` of the plain
+    version in every element at the main path's shape."""
+    args = _inputs(*PREFILL, dtype=torch.bfloat16, seed=11, decay=decay)
+    got = kernel_rounding(*args)
+    want = wkv6_torch(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("operand", SPLIT)
+def test_rounding_one_operand_once_leaves_the_bound(operand):
+    """Why the bf16 form splits each f32 operand: with that one rounded once
+    to bf16 (the others split), outputs at the main path's shape fall
+    outside ``KERNEL_TOL[bf16]`` of the plain version."""
+    args = _inputs(*PREFILL, dtype=torch.bfloat16, seed=11, decay="slow")
+    got = kernel_rounding(*args, split=tuple(o for o in SPLIT
+                                             if o != operand))
+    assert _outside(got, wkv6_torch(*args)) > 0
+
+
+@pytest.mark.parametrize("log_w", [rwkv6.LOG_W_MIN, -30.0],
+                         ids=["LOG_W_MIN", "below-the-clamp"])
+def test_subchunk_factorisation_equals_the_plain_version(log_w):
+    """The sub-chunk factorisation in f32, nothing rounded, is the plain
+    version's arithmetic: within 1e-5, with every log_w at the model's
+    clamp (a chunk's cum reaches -512) and below it (-30 a step: exp of a
+    whole sub-chunk's cum underflows).  Every exponent it takes is <= 0,
+    so nothing overflows, and nothing rests on the clamp."""
+    r, k, v, _, u = _inputs(2, 200, 3, 64, seed=13)
+    lw = torch.full_like(r, log_w)
+    got = kernel_rounding(r, k, v, lw, u, exact=True)
+    want = wkv6_torch(r, k, v, lw, u, chunk=WG_CHUNK)
+    assert torch.isfinite(got).all()
+    _close(got, want, 1e-5)
+
+
+def test_tma_readable_keeps_what_tma_reads_and_copies_the_rest():
+    """The bf16 form's TMA reads tensors that start on 16 bytes with every
+    stride but the last a multiple of 16 bytes: such a tensor (a view
+    included) goes to the kernel as it is; one off 16 bytes, or a head of 12
+    (rows of 24 bytes), is copied, contiguous and zero-padded to 16 bytes,
+    with the same values in its first K columns."""
+    n = 4 * 2 * 64
+    base = torch.zeros(n + 8, dtype=torch.bfloat16)
+    ok = base[:n].view(1, 4, 2, 64)
+    assert ok.data_ptr() % 16 == 0 and ops._tma_readable(ok) is ok
+    wide = torch.randn(1, 4, 2, 128).bfloat16()[..., :64]
+    assert not wide.is_contiguous() and ops._tma_readable(wide) is wide
+    shifted = base[1:1 + n].view(1, 4, 2, 64)
+    shifted.copy_(torch.randn(1, 4, 2, 64))
+    odd = torch.randn(1, 4, 2, 12).bfloat16()
+    for t, width in ((shifted, 64), (odd, 16)):
+        got = ops._tma_readable(t)
+        assert got is not t and got.is_contiguous()
+        assert got.shape[-1] == width and got.data_ptr() % 16 == 0
+        assert torch.equal(got[..., :t.shape[-1]], t)
+        assert not got[..., t.shape[-1]:].any()
+    lw = torch.zeros(1, 4, 2, 12)                  # f32: 48-byte rows
+    assert ops._tma_readable(lw) is lw
+
+
+# ---------------------------------------------------------------------------
 # on a card
 # ---------------------------------------------------------------------------
 
@@ -422,11 +589,13 @@ def test_kernel_matches_plain_version(card, shape, dtype, decay):
 
 
 @pytest.mark.cuda
-def test_kernel_reads_strided_views(card):
+@pytest.mark.parametrize("K", [64, 48])
+def test_kernel_reads_strided_views(card, K):
     """The model hands in r, k, v and log_w as (B, S, H, K) views of (B, S,
     d) projections; here views of one wider tensor, so no stride is the
-    contiguous one."""
-    B, S, H, K = 2, 100, 6, 64
+    contiguous one (K = 48: rows of 96 bytes, every stride still on 16
+    bytes, so the bf16 form reads them in place)."""
+    B, S, H = 2, 100, 6
     _, _, _, log_w, u = _inputs(B, S, H, K, device=card, decay="slow")
     proj = torch.randn((B, S, 3 * H * K + 8), device=card).bfloat16()
     r, k, v = (t.reshape(B, S, H, K)
@@ -435,6 +604,7 @@ def test_kernel_reads_strided_views(card):
     wide[..., :K] = log_w
     lw = wide[..., :K]
     assert not r.is_contiguous() and not lw.is_contiguous()
+    assert all(ops._tma_readable(t) is t for t in (r, k, v, lw))
     got = ops.wkv6(r, k, v, lw, u)
     want = wkv6_torch(r.contiguous(), k.contiguous(), v.contiguous(),
                       lw.contiguous(), u, chunk=ops.CHUNK)
@@ -459,6 +629,103 @@ def test_kernel_rejects_what_it_does_not_take(card):
     strided = torch.randn((1, 16, 2, 16), device=card)[..., ::2]
     with pytest.raises(ValueError, match="contiguous last axis"):
         ops.wkv6(strided, k, v, log_w, u)
+    with pytest.raises(ValueError, match="geometry"):
+        ops.wkv6(r, k, v, log_w, u, geometry=ops.KEPT)     # f32: none
+    with pytest.raises(ValueError, match="geometry"):
+        ops.wkv6(r.bfloat16(), k.bfloat16(), v.bfloat16(), log_w, u,
+                 geometry="n128")
+
+
+def _wkv_kernels_run(fn, attempts=3, calls=3):
+    """The names of the WKV kernels (device kernels whose name holds
+    "wkv6_kernel") that ``fn`` launches, under ``torch.profiler``.  After a
+    few hundred profiles in one process (the card tests of all four kernels
+    in one run), a profile of one short launch records no device event at
+    all in about three of four tries on the H100, and one of ``calls``
+    launches in none of the tries made; so each profile runs ``fn``
+    ``calls`` times, and is taken again, up to ``attempts`` times, until it
+    records a WKV kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = set()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = {ev.key for ev in prof.key_averages()
+                 if ev.device_type != DeviceType.CPU
+                 and "wkv6_kernel" in ev.key}
+        if names:
+            break
+    return names
+
+
+def _assert_form(names, dtype):
+    """bf16 runs the tensor-core form alone, f32 the CUDA-core form."""
+    assert names, "no WKV kernel ran"
+    if dtype == torch.bfloat16:
+        assert all("wkv6_kernel_wgmma" in n for n in names), names
+    else:
+        assert not any("wgmma" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", CARD_SHAPES,
+                         ids=lambda s: "B{}-S{}-H{}-K{}".format(*s))
+def test_kernel_runs_the_form_of_its_dtype(card, shape, dtype):
+    """bf16 runs ``wkv6_kernel_wgmma``, f32 ``wkv6_kernel``, by the names
+    the profiler sees."""
+    args = _inputs(*shape, dtype=dtype, seed=11, device=card, decay="slow")
+    _assert_form(_wkv_kernels_run(lambda: ops.wkv6(*args)), dtype)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_copies_what_tma_cannot_read(card):
+    """r at an offset off 16 bytes and a contiguous head of 12 (rows of 24
+    bytes) break TMA's rules: the wrapper copies them, zero-padded, and
+    still launches the tensor-core form, once."""
+    r, k, v, log_w, u = _inputs(2, 130, 3, 12, dtype=torch.bfloat16,
+                                device=card, decay="slow")
+    shifted = torch.empty(r.numel() + 1, dtype=r.dtype, device=card)[1:]
+    shifted = shifted.view(r.shape).copy_(r)
+    assert shifted.data_ptr() % 16 and k.stride(2) * 2 % 16
+    names = _wkv_kernels_run(lambda: ops.wkv6(shifted, k, v, log_w, u))
+    _assert_form(names, torch.bfloat16)
+    before = ops.launches()
+    got = ops.wkv6(shifted, k, v, log_w, u)
+    assert ops.launches() == before + 1
+    want = wkv6_torch(r, k, v, log_w, u, chunk=ops.CHUNK)
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", sorted(ops.GEOMETRIES))
+@pytest.mark.parametrize("log_w", ["slow", "mixed", rwkv6.LOG_W_MIN, -30.0],
+                         ids=["slow", "mixed", "LOG_W_MIN", "below-the-clamp"])
+def test_bf16_geometries_take_any_decay(card, geometry, log_w):
+    """Every geometry of the bf16 form on decays whose sub-chunks fall
+    within its range (the diagonal sub-blocks as products) and on log_w at
+    the model's clamp and below it everywhere (a sub-chunk's cum falls past
+    the range, so they are formed per (t, i, d)): within the kernel's bound,
+    and finite."""
+    decay = log_w if isinstance(log_w, str) else "slow"
+    r, k, v, lw, u = _inputs(2, 300, 4, 64, dtype=torch.bfloat16, seed=14,
+                             device=card, decay=decay)
+    if not isinstance(log_w, str):
+        lw = torch.full_like(lw, log_w)
+    got = ops.wkv6(r, k, v, lw, u, geometry=geometry)
+    want = wkv6_torch(r, k, v, lw, u, chunk=ops.CHUNK)
+    assert torch.isfinite(got).all()
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.cuda
