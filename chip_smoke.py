@@ -284,8 +284,9 @@ def device_profile(fn, groups=None) -> dict:
     return out
 
 
-#: the SASS opcodes the build lines count: wgmma, mma.sync, f32 FMA
-SASS_OPS = ("HGMMA", "HMMA", "FFMA")
+#: the SASS opcodes the build lines count: wgmma, mma.sync, f32 FMA, and
+#: local-memory loads and stores
+SASS_OPS = ("HGMMA", "HMMA", "FFMA", "LDL", "STL")
 
 
 def kernel_name(symbol: str) -> str:
@@ -359,12 +360,15 @@ def build_all() -> dict:
 
 def ptxas_line(line: str) -> str:
     """A ptxas resource line, or for an entry function its kernel's name
-    and template arguments (cgra_exec's <state shared, tables shared>)."""
+    and template arguments (cgra_exec's <state shared, tables shared>, the
+    bf16 WKV form's <value columns>)."""
     head = re.search(r"Compiling entry function '(\S+)'", line)
     if not head:
         return line.strip()
     args = re.search(r"ILb([01])ELb([01])E", head.group(1))
-    form = f"<{args.group(1)},{args.group(2)}>" if args else ""
+    cols = re.search(r"wkv6_kernel_wgmmaILi(\d+)EE", head.group(1))
+    form = (f"<{args.group(1)},{args.group(2)}>" if args
+            else f"<{cols.group(1)}>" if cols else "")
     return f"entry {kernel_name(head.group(1))}{form}"
 
 
@@ -986,9 +990,10 @@ def wkv_geometries(dev) -> None:
                                   "mixed") for B in (2, 1)}
     r, k, v, log_w, u = inputs["B2"]
     inputs["B2_clamp"] = (r, k, v, torch.full_like(log_w, LOG_W_MIN), u)
+    kept = ops.kept_geometry()
     for geometry in ops.GEOMETRIES:
         row = {"kernel": "rwkv6", "geometry": geometry,
-               "kept": geometry == ops.KEPT, "log_w_clamp": LOG_W_MIN}
+               "kept": geometry == kept, "log_w_clamp": LOG_W_MIN}
         for key, args in inputs.items():
             over = excess(ops.wkv6(*args, geometry=geometry),
                           wkv6_torch(*args, chunk=ops.CHUNK), "bfloat16")

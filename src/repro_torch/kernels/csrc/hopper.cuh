@@ -1,9 +1,10 @@
 // hopper.cuh: the Hopper pieces the port's tensor-core kernels share
 // (flash_attention_wgmma.cu, mamba2_ssd_wgmma.cu, wkv6_wgmma.cu): mbarriers,
 // named barriers, TMA loads and tensor maps, shared-memory descriptors,
-// fences and wgmma in bf16 with f32 accumulators.  sm_90a only.  A kernel library that includes this header
-// lists it among its SOURCES, so that an edit here rebuilds it
-// (repro_torch/kernels/build.py hashes every source into the library's name).
+// fences and wgmma in bf16 with f32 accumulators.  sm_90a only.  A kernel
+// library that includes this header lists it among its SOURCES, so that an
+// edit here rebuilds it (repro_torch/kernels/build.py hashes every source
+// into the library's name).
 //
 // Conventions: shared-memory addresses are 32-bit (smem_u32); tiles are
 // 128-byte swizzled rows of 64 bf16 columns, 1024-byte aligned, as TMA writes
@@ -34,9 +35,9 @@ __device__ __forceinline__ uint32_t swz(int row, int chunk) {
     return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-                 "r"(count));
+                 "r"(1));
 }
 
 __device__ __forceinline__ void mbar_init_fence() {
@@ -87,59 +88,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
             : "r"(bar), "r"(parity)
             : "memory");
     } while (!done);
-}
-
-// mbar_wait whose acquire reaches the whole cluster: for a barrier that
-// blocks of the cluster arrive on after writing this block's shared memory
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
-                                                  uint32_t parity) {
-    uint32_t done, spins = 0;
-    do {
-        if (++spins == (1u << 26)) __trap();
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
-            "[%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// Thread-block clusters: this block's rank, the shared::cluster address of
-// a shared-memory location (addr, this block's) in block `rank`, a 16-byte
-// store and an mbarrier arrival there (releasing this thread's writes, and
-// those ordered before them, to the cluster), and a barrier of all the
-// cluster's threads
-__device__ __forceinline__ uint32_t cluster_rank() {
-    uint32_t r;
-    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-    return r;
-}
-__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
-    uint32_t r;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(r)
-                 : "r"(addr), "r"(rank));
-    return r;
-}
-__device__ __forceinline__ void st_cluster(uint32_t addr, uint4 v) {
-    asm volatile(
-        "st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-        "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-        : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
-    asm volatile(
-        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
-        ::"r"(addr)
-        : "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-    asm volatile(
-        "barrier.cluster.arrive.release.aligned;\n"
-        "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // one box of a 3-D or 4-D map into shared memory at dst, completing bar
@@ -235,11 +183,6 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
 __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-// the same for plain stores into the shared memory of the cluster's blocks
-__device__ __forceinline__ void fence_proxy_async_cluster() {
-    asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void wgmma_fence() {
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

@@ -339,11 +339,11 @@ int launch(const void* r, const void* k, const void* v, const void* lw,
 // the bf16 form (wkv6_wgmma.cu)
 int wkv6_wgmma_launch(const void* r, const void* k, const void* v,
                       const void* log_w, const void* u, void* o, int B, int S,
-                      int H, int K, const long long* st, int form,
+                      int H, int K, const long long* st, int columns,
                       cudaStream_t stream);
 
-// dtype 0: r, k, v, o in f32 (the CUDA-core form, form 0 only); 1: bf16 (the
-// tensor-core form; form picks its geometry, 0 the kept one, see
+// dtype 0: r, k, v, o in f32 (the CUDA-core form, columns 0 only); 1: bf16
+// (the tensor-core form; columns picks its geometry, 0 the kept one, see
 // wkv6_wgmma_launch).  log_w and u are f32, u contiguous (H, K).  strides
 // (in elements): the batch, step and head strides of r, k, v and log_w, in
 // that order (the last axis of each is contiguous).  f32: o contiguous (B,
@@ -353,14 +353,15 @@ int wkv6_wgmma_launch(const void* r, const void* k, const void* v,
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* log_w, const void* u, void* o,
                            int dtype, int B, int S, int H, int K,
-                           const long long* strides, int form, void* stream) {
+                           const long long* strides, int columns,
+                           void* stream) {
     if (B < 1 || S < 1 || H < 1 || K < 1 || K > kMaxK)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0 && form == 0)
+    if (dtype == 0 && columns == 0)
         return launch(r, k, v, log_w, u, o, B, S, H, K, strides, s);
     if (dtype == 1)
         return wkv6_wgmma_launch(r, k, v, log_w, u, o, B, S, H, K, strides,
-                                 form, s);
+                                 columns, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

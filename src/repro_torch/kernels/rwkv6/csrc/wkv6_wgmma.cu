@@ -31,18 +31,19 @@
 //   below 2^-126); rows at or before sub-chunk j are zero in the product.
 //   The diagonal sub-block j = p is a product too where no sub-chunk's cum
 //   falls more than kRange (2^kRange bounds r_t exp(cum_{t-1} - c_p) from
-//   above and k_i exp(c_p - cum_i) from below): the model's decays, slow or
-//   mixed.  Where one falls further (log_w at the model's clamp of -8 a
-//   step falls 185 in 16 steps) the chunk's diagonal sub-blocks are formed
-//   per (t, i, d) instead, one warp each with a channel a lane (two: d and
-//   d + 32), with either one ex2 a (t, i, d) (cum in log2 units, exponent
-//   cum_{t-1} - cum_i <= 0) or a running product along t of the steps'
-//   decays (the "products" geometry), and a butterfly reduce-scatter that
-//   sums 32 (t, i) pairs over the lanes at a time.  So any log_w <= 0 is
-//   taken.  R~ is formed as R^_t = r_t exp(cum_{t-1} - c_{p-1}) (row
-//   sub-chunk p, c_{-1} = 0), one ex2 a (t, d), times exp(c_{p-1} - c_j),
-//   one a (p, j, d); the same R^ gives r~ = r exp(cum_{t-1}) and
-//   K~ = k exp(c_j - cum_i) gives kdec = k exp(cum_{L-1} - cum_i).
+//   above and k_i exp(c_p - cum_i) from below), decided per (batch, head,
+//   chunk) over all its channels (tools/wkv_phases.py counts the chunks of
+//   rwkv6-1.6b's prefill that take each path).  Where one falls further
+//   (log_w at the model's clamp of -8 a step falls 185 in log2 units over
+//   16 steps) the chunk's diagonal sub-blocks are formed per (t, i, d)
+//   instead, one warp each with a channel a lane (two: d and d + 32), k_i
+//   times a running product along t of the steps' decays (each at most 1),
+//   and a butterfly reduce-scatter that sums 32 (t, i) pairs over the lanes
+//   at a time.  So any log_w <= 0 is taken.  R~ is formed as R^_t = r_t
+//   exp(cum_{t-1} - c_{p-1}) (row sub-chunk p, c_{-1} = 0), one ex2 a
+//   (t, d), times exp(c_{p-1} - c_j), one a (p, j, d); the same R^ gives
+//   r~ = r exp(cum_{t-1}) and K~ = k exp(c_j - cum_i) gives kdec = k
+//   exp(cum_{L-1} - cum_i).
 // - Every f32 operand enters the tensor cores as bf16 hi + lo (16 bits):
 //   each of R~, K~ (A's sub-blocks), A, r~, S and kdec rounded once to bf16
 //   puts outputs outside the bound the kernel is held to (2e-3 + 1e-2 |want|
@@ -70,17 +71,9 @@
 //   and past K adds nothing (log_w = 0, k = 0 there).  o leaves through a
 //   TMA store, clipped at S and K.
 // - NV = 64 value columns a block (one block a (batch, head)) or 32 (two
-//   blocks a head, each forming all of A, kept: 128 blocks at the prefill):
-//   the "geometry", with the per-(t, i, d) variant; and NV = 32 with a
-//   head's two blocks one cluster (kCl) that forms each chunk's operands
-//   once between them, block r the column sub-chunks 2 r and 2 r + 1 (the
-//   k side of their rows, the diagonal of their row sub-chunks, r~ of
-//   their rows), each written into both blocks' shared memory (the other's
-//   through distributed shared memory, once its K~ in the A tiles is read:
-//   mbarrier rdone).  The stores between blocks cost what the halved work
-//   saves (tools/wkv_phases.py --geometry n32x2-products), so it is not
-//   kept.  Three warpgroups, about 217 KB of shared memory, one block an
-//   SM.
+//   blocks a head, each forming all of A: 128 blocks at the prefill, the
+//   default, kKeptColumns): the "geometry".  Three warpgroups, about 217 KB
+//   of shared memory, one block an SM.
 #include "../../csrc/hopper.cuh"   // mbarriers, TMA, descriptors, wgmma
 
 #include <cstdint>
@@ -100,6 +93,8 @@ constexpr float kLog2e = 1.4426950408889634f;   // exp(v) = ex2(v kLog2e)
 // the most a sub-chunk's cum may fall (log2 units, 69 in natural units) for
 // its diagonal sub-block to be a product: past it, per (t, i, d)
 constexpr float kRange = 100.f;
+// value columns a block unless the caller asks for the other geometry
+constexpr int kKeptColumns = 32;
 
 // byte offsets from the 1024-aligned base
 constexpr uint32_t kOffV = 2 * kIn;              // v of chunk c at + kTile (c % 2)
@@ -110,8 +105,8 @@ constexpr uint32_t kOffF = kOffO + kTile;        // floats: decay [2][64]; per
 // prep warpgroup its vectors [9][64], the diagonal sub-blocks [4][16][16],
 // bonus [64] and the scan's exchange [64]; u [64]
 constexpr int kFloats = 2 * 64 + 2 * kPrepF + 64;
-constexpr uint32_t kOffBar = kOffF + 4 * kFloats;    // 10 mbarriers
-constexpr int kSmem = kOffBar + 10 * 8 + 1024;       // + 1024 to align
+constexpr uint32_t kOffBar = kOffF + 4 * kFloats;    // 8 mbarriers
+constexpr int kSmem = kOffBar + 8 * 8 + 1024;        // + 1024 to align
 static_assert(kSmem <= 232448, "over the shared memory a block can have");
 
 // chunk c's r, k and log_w into input set c % 2, completing mbarrier in[c % 2]
@@ -156,19 +151,6 @@ __device__ __forceinline__ uint32_t oswz(int row, int chunk) {
     return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
 }
 
-// Rows 16 p .. 16 p + 15, 16-byte chunks ch0 .. ch0 + nch - 1, of the tile
-// at shared address tile (tilep, as a pointer) into the same place in the
-// cluster's block `to`, by the 32 lanes of warp p
-__device__ __forceinline__ void copy_rows(uint32_t tile, const uint8_t* tilep,
-                                          int p, int ch0, int nch, uint32_t to,
-                                          int lane) {
-    for (int e = lane; e < 16 * nch; e += 32) {
-        const uint32_t off = swz(16 * p + e / nch, ch0 + e % nch);
-        st_cluster(mapa(tile + off, to),
-                   *reinterpret_cast<const uint4*>(tilep + off));
-    }
-}
-
 // The butterfly reduce-scatter of 32 values a lane: lane l returns the sum,
 // over the warp's lanes, of their v[l]
 __device__ __forceinline__ float reduce_scatter(float (&v)[32], int lane) {
@@ -187,7 +169,7 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[32], int lane) {
 
 // The chain warpgroup: S (64 x NV) in registers, products (a), (b), (c) a
 // chunk, o out through TMA.
-template <int NV, bool kCl>
+template <int NV>
 __device__ __forceinline__ void chain(const CUtensorMap* tm_v,
                                       const CUtensorMap* tm_o, uint32_t base,
                                       const float* decay, int n_chunks,
@@ -211,10 +193,7 @@ __device__ __forceinline__ void chain(const CUtensorMap* tm_v,
                        kdlo = out + 3 * kTile, ahi = out + 4 * kTile,
                        alo = out + 5 * kTile;
         const uint32_t vt = base + kOffV + s * kTile + vcol;
-        if constexpr (kCl)                        // the preps' chunk c
-            mbar_wait_cluster(full + 8 * s, ph);
-        else
-            mbar_wait(full + 8 * s, ph);
+        mbar_wait(full + 8 * s, ph);              // the prep's chunk c
         mbar_wait(vb + 8 * s, ph);                // v of chunk c
 
         // S's decay by rows d; kdec^T as A fragments (ldmatrix.trans reads
@@ -269,8 +248,6 @@ __device__ __forceinline__ void chain(const CUtensorMap* tm_v,
         named_bar(1, 128);                        // the chunk's operands are read
         if (tid == 0) {
             mbar_arrive(empty + 8 * s);
-            if constexpr (kCl)    // the other block's prep writes here too
-                mbar_arrive_cluster(mapa(empty + 8 * s, cluster_rank() ^ 1));
             if (c + 2 < n_chunks) load_v(tm_v, base, vb, c + 2, h, b);
         }
 
@@ -315,7 +292,6 @@ __device__ __forceinline__ void chain(const CUtensorMap* tm_v,
 // depend on S.  Prep warpgroup w takes chunks w, w + 2, ..., so it owns input
 // and output set w; named barrier 2 + w.  Warp p owns rows 16 p .. 16 p + 15
 // (row sub-chunk p) in the fragment layouts and diagonal sub-block p.
-template <bool kProducts, bool kCl>
 __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
                                      const CUtensorMap* tm_k,
                                      const CUtensorMap* tm_w, uint32_t base,
@@ -326,8 +302,7 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
     const int r0 = 16 * p + lane / 4;
     const int st_row = 16 * p + 8 * (lane / 8 % 2) + lane % 8;
     const int cq = 2 * (lane % 4);
-    const uint32_t inb = base + kOffBar, full = inb + 32, empty = inb + 48,
-                   rdone = inb + 64;
+    const uint32_t inb = base + kOffBar, full = inb + 32, empty = inb + 48;
     float* const decay = fl;
     // E_1..3, G_20, G_30, G_31, F_0..2, D_0..3; the diagonal's sums
     float* const vec = fl + 2 * kL + w * kPrepF;
@@ -347,12 +322,6 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
         dst[q] = p * 256 + (idx < 120 ? t * 16 + idx - t * (t - 1) / 2 : 15);
     }
 
-    // kCl: the two blocks of a cluster (a head's two halves of the value
-    // columns) share the work of each chunk: block r forms column sub-chunks
-    // 2 r and 2 r + 1 of A (the k side of their rows, the diagonal of their
-    // row sub-chunks, r~ of their rows), each into its own output set and
-    // the other block's
-    const int rk = kCl ? static_cast<int>(cluster_rank()) : 0;
     const int s = w;                              // this warpgroup's set
     uint8_t* const Rb = gb + s * kIn;
     uint8_t* const Kb = Rb + kTile;
@@ -433,20 +402,17 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
         // number t (t - 1) / 2 + i, summed 32 at a time (every loop has a
         // fixed count, so that all of it unrolls and every index is a
         // constant)
-        if (slow && (!kCl || p / 2 == rk)) {
+        if (slow) {
             const int T0 = 16 * p, d0 = lane, d1 = lane + 32;
             auto cm = [&](int T, int d) { return W[cidx(T, d)]; };
             auto bf = [&](const uint8_t* tile, int T, int d) {
                 return bf1(tile + swz(T, d >> 3) + 2 * (d & 7));
             };
-            float qv[15][2];    // products: k_i prod_{i<s<t} w_s; ex2: k_i
-            float ci[15][2];    // ex2: cum_i
+            float qv[15][2];    // k_i prod_{i<s<t} w_s
             float part[32];
             float cp0 = cm(T0, d0), cp1 = cm(T0, d1);      // cum_{t-1}
             qv[0][0] = bf(Kb, T0, d0);
             qv[0][1] = bf(Kb, T0, d1);
-            ci[0][0] = cp0;
-            ci[0][1] = cp1;
 #pragma unroll
             for (int t = 1; t < 16; ++t) {
                 const int T = T0 + t;
@@ -456,31 +422,22 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
                 for (int i = 0; i < 15; ++i) {
                     if (i < t) {
                         const int P = t * (t - 1) / 2 + i;
-                        if constexpr (kProducts) {
-                            part[P % 32] = rt0 * qv[i][0] + rt1 * qv[i][1];
-                        } else {
-                            part[P % 32] = rt0 * qv[i][0] * ex2(cp0 - ci[i][0])
-                                           + rt1 * qv[i][1] * ex2(cp1 - ci[i][1]);
-                        }
+                        part[P % 32] = rt0 * qv[i][0] + rt1 * qv[i][1];
                         if (P % 32 == 31)
                             dg[dst[P / 32]] = reduce_scatter(part, lane);
                     }
                 }
-                if (t < 15) {
-                    if constexpr (kProducts) {        // q_i <- q_i w_t
-                        const float w0 = ex2(cm0 - cp0), w1 = ex2(cm1 - cp1);
+                if (t < 15) {                     // q_i <- q_i w_t
+                    const float w0 = ex2(cm0 - cp0), w1 = ex2(cm1 - cp1);
 #pragma unroll
-                        for (int i = 0; i < 15; ++i) {
-                            if (i < t) {
-                                qv[i][0] *= w0;
-                                qv[i][1] *= w1;
-                            }
+                    for (int i = 0; i < 15; ++i) {
+                        if (i < t) {
+                            qv[i][0] *= w0;
+                            qv[i][1] *= w1;
                         }
                     }
                     qv[t][0] = bf(Kb, T, d0);
                     qv[t][1] = bf(Kb, T, d1);
-                    ci[t][0] = cm0;
-                    ci[t][1] = cm1;
                 }
                 cp0 = cm0;
                 cp1 = cm1;
@@ -502,19 +459,13 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
                 int ch;
                 rhat(kk, f, ch, xr[kk][f][0], xr[kk][f][1]);
             }
-        if (c >= 2) {     // the chain's c - 2 (with kCl both blocks' chains)
-            if constexpr (kCl)
-                mbar_wait_cluster(empty + 8 * s, ph ^ 1);
-            else
-                mbar_wait(empty + 8 * s, ph ^ 1);
-        }
+        if (c >= 2) mbar_wait(empty + 8 * s, ph ^ 1);   // the chain's c - 2
         if (ptid >= 64) decay[s * kL + (ptid & 63)] = dec;
 
         // ---- the k side: K~ = k exp(c_j - cum_i) (sub-chunk j), kdec = K~
         // exp(cum_L - c_j) (c_3 = cum_L), both split; the bonus sum_d r u k ----
 #pragma unroll
-        for (int nn = 0; nn < (kCl ? 2 : 4); ++nn) {
-            const int n = kCl ? 2 * rk + nn : nn;   // row i in sub-chunk n
+        for (int n = 0; n < 4; ++n) {             // row i in sub-chunk n
             const int i = (ptid >> 3) + 16 * n, c8 = ptid & 7;
             const uint32_t off = swz(i, c8);
             const uint4 kv = *reinterpret_cast<const uint4*>(Kb + off);
@@ -554,10 +505,6 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
                         kdl = make_uint4(dl[0], dl[1], dl[2], dl[3]);
             *reinterpret_cast<uint4*>(outp + 2 * kTile + off) = kdh;
             *reinterpret_cast<uint4*>(outp + 3 * kTile + off) = kdl;
-            if constexpr (kCl) {
-                st_cluster(mapa(out + 2 * kTile + off, rk ^ 1), kdh);
-                st_cluster(mapa(out + 3 * kTile + off, rk ^ 1), kdl);
-            }
             bsum += __shfl_xor_sync(0xffffffffu, bsum, 1);
             bsum += __shfl_xor_sync(0xffffffffu, bsum, 2);
             bsum += __shfl_xor_sync(0xffffffffu, bsum, 4);
@@ -579,10 +526,6 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
         float acc[4][8];
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-            if (kCl && half != rk) continue;      // the same in a warpgroup
-            // r~ of this warp's rows: in round 0, or (kCl) by the block
-            // whose column sub-chunks they are
-            const bool rt_here = kCl ? p / 2 == rk : half == 0;
             uint32_t fh[2][4][4], fo[2][4][4];
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
@@ -591,7 +534,7 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
                 for (int f = 0; f < 4; ++f) {
                     const int ch = 16 * kk + 8 * (f >> 1) + cq;
                     const float x0 = xr[kk][f][0], x1 = xr[kk][f][1];
-                    if (kCl || half == 0) {
+                    if (half == 0) {                  // r~ in round 0
                         const float2 E =
                             p > 0 ? *reinterpret_cast<const float2*>(
                                         vec + (p - 1) * kL + ch)
@@ -611,16 +554,11 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
                                fo[jj][kk][f]);
                     }
                 }
-                if (rt_here) {
+                if (half == 0) {
                     const uint32_t so = swz(st_row, 2 * kk + lane / 16);
                     stmatrix_x4(out + so, rth);
                     stmatrix_x4(out + kTile + so, rtl);
                 }
-            }
-            if (kCl && rt_here) {                 // and into the other block
-                __syncwarp();
-                copy_rows(out, outp, p, 0, 8, rk ^ 1, lane);
-                copy_rows(out + kTile, outp + kTile, p, 0, 8, rk ^ 1, lane);
             }
 #pragma unroll
             for (int jj = 0; jj < 2; ++jj)
@@ -653,12 +591,8 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
         // have read it): sub-blocks j < p from the products, j = p from them
         // or dg, with the bonus on the diagonal, j > p zero ----
         named_bar(2 + w, 128);
-        if constexpr (kCl) {      // our K~ is read: the other block may write
-            if (ptid == 0) mbar_arrive_cluster(mapa(rdone + 8 * s, rk ^ 1));
-        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            if (kCl && j / 2 != rk) continue;     // the same in a warpgroup
             uint32_t ah[4], al[4];
 #pragma unroll
             for (int f = 0; f < 4; ++f) {         // rows + 8 (f % 2), columns
@@ -679,25 +613,13 @@ __device__ __forceinline__ void prep(const CUtensorMap* tm_r,
             stmatrix_x4(out + 4 * kTile + so, ah);
             stmatrix_x4(out + 5 * kTile + so, al);
         }
-        if constexpr (kCl) {      // our columns of A into the other block,
-            mbar_wait_cluster(rdone + 8 * s, ph);   // once its K~ is read
-            __syncwarp();
-            copy_rows(out + 4 * kTile, outp + 4 * kTile, p, 4 * rk, 4, rk ^ 1,
-                      lane);
-            copy_rows(out + 5 * kTile, outp + 5 * kTile, p, 4 * rk, 4, rk ^ 1,
-                      lane);
-            fence_proxy_async_cluster();
-        }
         fence_proxy_async();
         named_bar(2 + w, 128);                        // chunk c's operands are written
-        if (ptid == 0) {
-            mbar_arrive(full + 8 * s);
-            if constexpr (kCl) mbar_arrive_cluster(mapa(full + 8 * s, rk ^ 1));
-        }
+        if (ptid == 0) mbar_arrive(full + 8 * s);
     }
 }
 
-template <int NV, bool kProducts, bool kCl>
+template <int NV>
 __global__ void __launch_bounds__(kThreads, 1)
 wkv6_kernel_wgmma(const __grid_constant__ CUtensorMap tm_r,
                   const __grid_constant__ CUtensorMap tm_k,
@@ -718,10 +640,7 @@ wkv6_kernel_wgmma(const __grid_constant__ CUtensorMap tm_r,
     const int n_chunks = (S + kL - 1) / kL;
 
     if (tid == 0) {
-        // in, vb: one arrival; full, empty: one a block of the cluster;
-        // rdone: the other block's
-        for (int i = 0; i < 10; ++i)
-            mbar_init(bar + 8 * i, kCl && i >= 4 && i < 8 ? 2 : 1);
+        for (int i = 0; i < 8; ++i) mbar_init(bar + 8 * i);
         mbar_init_fence();
         for (int c = 0; c < 2 && c < n_chunks; ++c) {
             load_in(&tm_r, &tm_k, &tm_w, base, bar, c, h, b);
@@ -737,42 +656,23 @@ wkv6_kernel_wgmma(const __grid_constant__ CUtensorMap tm_r,
     }
     fence_proxy_async();
     __syncthreads();
-    if constexpr (kCl) cluster_sync();   // the other block's barriers are set
     if (tid < 128)
-        chain<NV, kCl>(&tm_v, &tm_o, base, fl, n_chunks, h, b, n0);
+        chain<NV>(&tm_v, &tm_o, base, fl, n_chunks, h, b, n0);
     else
-        prep<kProducts, kCl>(&tm_r, &tm_k, &tm_w, base, gb, fl, n_chunks, h,
-                             b);
-    if constexpr (kCl) cluster_sync();   // nothing more arrives or lands here
+        prep(&tm_r, &tm_k, &tm_w, base, gb, fl, n_chunks, h, b);
 }
 
-template <int NV, bool kProducts, bool kCl = false>
+template <int NV>
 int launch_form(const CUtensorMap& tr, const CUtensorMap& tk,
                 const CUtensorMap& tv, const CUtensorMap& tw,
                 const CUtensorMap& to, const float* u, int B, int S, int H,
                 int K, cudaStream_t stream) {
-    const auto kernel = wkv6_kernel_wgmma<NV, kProducts, kCl>;
+    const auto kernel = wkv6_kernel_wgmma<NV>;
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (set != cudaSuccess) return static_cast<int>(set);
-    // kCl: a head's two blocks (both halves of the value columns, even
-    // where K <= 32 leaves the second none) form one cluster
-    const dim3 grid(B * H, kCl ? 2 : (K + NV - 1) / NV);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = kSmem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = kCl ? 2 : 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = kCl ? 1 : 0;
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, tr, tk, tv, tw,
-                                               to, u, S, H, K);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(B * H, (K + NV - 1) / NV);
+    kernel<<<grid, kThreads, kSmem, stream>>>(tr, tk, tv, tw, to, u, S, H, K);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -782,19 +682,16 @@ int launch_form(const CUtensorMap& tr, const CUtensorMap& tk,
 // and log_w f32, each with a contiguous last axis, 16-byte aligned, every
 // other stride a multiple of 16 bytes (the wrapper copies what is not);
 // strides (in elements) as wkv6_launch takes them; o contiguous (B, S, H, K
-// rounded up to 8), 16-byte aligned.  form: 0 the kept geometry; 1 NV = 64
-// with the diagonal by products; 2 NV = 64, by ex2; 3 NV = 32, products; 4
-// NV = 32, ex2; 5 NV = 32, products, a head's two blocks one cluster that
-// forms each chunk's operands once between them.  Returns the CUDA error of the launch, or -(a CUresult) when
-// a tensor map cannot be made.
+// rounded up to 8), 16-byte aligned.  columns: the value columns a block,
+// 64 or 32, or 0 for kKeptColumns.  Returns the CUDA error of the launch, or
+// -(a CUresult) when a tensor map cannot be made.
 int wkv6_wgmma_launch(const void* r, const void* k, const void* v,
                       const void* log_w, const void* u, void* o, int B, int S,
-                      int H, int K, const long long* st, int form,
+                      int H, int K, const long long* st, int columns,
                       cudaStream_t stream) {
     using u64 = cuuint64_t;
-    if (form == 0) form = 3;                      // the kept geometry
-    if (form < 1 || form > 5) return static_cast<int>(cudaErrorInvalidValue);
-    const int nv = form <= 2 ? 64 : 32;
+    const int nv = columns == 0 ? kKeptColumns : columns;
+    if (nv != 64 && nv != 32) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap tr, tk, tv, tw, to;
     const u64 dims[4] = {u64(K), u64(H), u64(S), u64(B)};
     const cuuint32_t box[4] = {64, 1, kL, 1};
@@ -819,11 +716,11 @@ int wkv6_wgmma_launch(const void* r, const void* k, const void* v,
                                       : CU_TENSOR_MAP_SWIZZLE_64B);
     if (err != 0) return err;
     const float* uf = static_cast<const float*>(u);
-    switch (form) {
-        case 1: return launch_form<64, true>(tr, tk, tv, tw, to, uf, B, S, H, K, stream);
-        case 2: return launch_form<64, false>(tr, tk, tv, tw, to, uf, B, S, H, K, stream);
-        case 3: return launch_form<32, true>(tr, tk, tv, tw, to, uf, B, S, H, K, stream);
-        case 4: return launch_form<32, false>(tr, tk, tv, tw, to, uf, B, S, H, K, stream);
-        default: return launch_form<32, true, true>(tr, tk, tv, tw, to, uf, B, S, H, K, stream);
-    }
+    return nv == 64
+        ? launch_form<64>(tr, tk, tv, tw, to, uf, B, S, H, K, stream)
+        : launch_form<32>(tr, tk, tv, tw, to, uf, B, S, H, K, stream);
 }
+
+// the value columns a block of the geometry the bf16 form runs when the
+// caller names none
+extern "C" int wkv6_kept_columns() { return kKeptColumns; }

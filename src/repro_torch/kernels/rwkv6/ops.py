@@ -35,16 +35,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 32
 FORM_CHUNK = {torch.float32: 32, torch.bfloat16: 64}
 MAX_HEAD = 64
-#: the bf16 form's geometries, by the code its C entry point reads: value
-#: columns a block ("n64": one block a (batch, head); "n32": two, each
-#: forming all of A; "n32x2": two as one cluster that forms A once between
-#: them) and how A's diagonal sub-blocks are formed where a sub-chunk's
-#: decay falls past the form's range (running products of the steps'
-#: decays, or one ex2 a (t, i, d)).  The entry point runs KEPT unless asked
-#: for another (``wkv6(..., geometry=...)``)
-GEOMETRIES = {"n64-products": 1, "n64-ex2": 2, "n32-products": 3,
-              "n32-ex2": 4, "n32x2-products": 5}
-KEPT = "n32-products"
+#: the bf16 form's geometries by the value columns a block, which its C
+#: entry point reads ("n64": one block a (batch, head); "n32": two, each
+#: forming all of A).  The entry point runs its own default
+#: (``kept_geometry()``) unless asked for one (``wkv6(..., geometry=...)``)
+GEOMETRIES = {"n64": 64, "n32": 32}
 #: the bf16 form's TMA reads tensors that start on 16 bytes and whose strides
 #: (but the last) are multiples of 16 bytes
 TMA_ALIGN = 16
@@ -70,11 +65,18 @@ def build() -> Path:
     return _build.build("rwkv6", SOURCES, {})
 
 
+def kept_geometry() -> str:
+    """The geometry the bf16 form runs when the caller names none, as its C
+    entry point states it (builds the library if it is not built)."""
+    columns = _build.load("rwkv6", SOURCES, {}).wkv6_kept_columns()
+    return {n: g for g, n in GEOMETRIES.items()}[columns]
+
+
 @functools.cache
 def _launcher():
     """The library's C entry point, built and loaded once per process."""
     fn = _build.load("rwkv6", SOURCES, {}).wkv6_launch
-    # r, k, v, log_w, u, o; dtype, B, S, H, K; strides; form; stream
+    # r, k, v, log_w, u, o; dtype, B, S, H, K; strides; columns; stream
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                       ctypes.c_void_p])
@@ -127,12 +129,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log_w is f32 or r's dtype, K is at most 64, and the last axis of r, k, v
     and log_w is contiguous (other strides are read as they are).  bf16
     runs the tensor-core form over chunks of 64 (``geometry``, a key of
-    ``GEOMETRIES``, picks its geometry; None the kept one), whose TMA reads
-    tensors that start on 16 bytes with every other stride a multiple of
-    16 bytes: an r, k, v or log_w that is not so (an odd offset, a head of
-    12) is copied first, contiguous and zero-padded (``_tma_readable``), and
-    still runs that form.  f32 runs the CUDA-core form over chunks of 32.
-    CPU tensors run the plain version over chunks of ``CHUNK``."""
+    ``GEOMETRIES``, picks its geometry; None ``kept_geometry()``), whose
+    TMA reads tensors that start on 16 bytes with every other stride a
+    multiple of 16 bytes: an r, k, v or log_w that is not so (an odd
+    offset, a head of 12) is copied first, contiguous and zero-padded
+    (``_tma_readable``), and still runs that form.  f32 runs the CUDA-core
+    form over chunks of 32.  CPU tensors run the plain version over chunks
+    of ``CHUNK``."""
     global _launches
     B, S, H, K = _check(r, k, v, log_w, u)
     if r.device.type == "cpu":

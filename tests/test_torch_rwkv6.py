@@ -391,6 +391,12 @@ def test_decode_steps_continue_the_prefill():
 #: the bf16 form's chunk (``csrc/wkv6_wgmma.cu``, as ``ops.FORM_CHUNK``
 #: states it) and the sub-chunk of its intra-chunk products
 WG_CHUNK, WG_SUB = ops.FORM_CHUNK[torch.bfloat16], 16
+#: the most a sub-chunk's cum may fall, in log2 units, for the bf16 form to
+#: form a chunk's diagonal sub-blocks as products (its ``kRange``): where
+#: it falls further in any channel of a (batch, head), that chunk's are
+#: formed per (t, i, d)
+WG_RANGE = 100.0
+LOG2E = 1.4426950408889634
 #: the f32 operands the bf16 form splits into bf16 hi + lo: "R" and "Kt",
 #: the two sides of A's off-diagonal sub-blocks (r and k scaled from the
 #: sub-chunk's reference point), "A" (A v), "rt" (r exp(cum_ex), the left
@@ -403,12 +409,28 @@ def _bf16(t):
     return t.bfloat16().float()
 
 
+def _slow_chunks(log_w):
+    """(B, chunks, H): whether the bf16 form forms the chunk's diagonal
+    sub-blocks per (t, i, d), by its own test: the cum of log_w, in log2
+    units, falls more than ``WG_RANGE`` over one of the chunk's sub-chunks
+    in some channel."""
+    B, S, H, K = log_w.shape
+    n = -(-S // WG_CHUNK)
+    lw = F.pad(log_w.float(), (0, 0, 0, 0, 0, n * WG_CHUNK - S))
+    cum = torch.cumsum(lw.reshape(B, n, WG_CHUNK, H, K) * LOG2E, dim=2)
+    ends = cum[:, :, WG_SUB - 1::WG_SUB]                 # c_0 .. c_3
+    fall = F.pad(ends, (0, 0, 0, 0, 1, 0))[:, :, :-1] - ends
+    return (fall > WG_RANGE).any(dim=4).any(dim=2)
+
+
 def kernel_rounding(r, k, v, log_w, u, split=SPLIT, exact=False):
     """The bf16 tensor-core form's arithmetic on the CPU, chunk by chunk
     (chunks of ``WG_CHUNK``): A's sub-blocks below the diagonal (sub-chunks
     of ``WG_SUB``) as products of r_t exp(cum_ex_t - c_j) and k_i exp(c_j -
     cum_i), c_j the cum of sub-chunk j's last step, both exponents <= 0;
-    the four diagonal sub-blocks per (t, i, d) with the u bonus on the
+    the four diagonal sub-blocks as the same products with j = p (rows at
+    or after the column dropped), or per (t, i, d) in a chunk where
+    ``_slow_chunks`` says the kernel forms them so, with the u bonus on the
     diagonal; o = r exp(cum_ex) S + A v; S <- exp(cum_L) S + kdec^T v.
     Every product takes bf16 operands and sums in f32: r, k and v are bf16
     already, and each f32 operand enters as bf16 hi + lo (hi = bf16(x),
@@ -438,8 +460,9 @@ def kernel_rounding(r, k, v, log_w, u, split=SPLIT, exact=False):
                    for q, y in enumerate(pb) if m + q < 2)
 
     tri = torch.tril(torch.ones((WG_SUB, WG_SUB), dtype=torch.bool),
-                     -1)[None, :, :, None, None]
+                     -1)[None, :, :, None]
     eye = torch.eye(WG_SUB)[None, :, :, None]
+    slow = _slow_chunks(log_w)
     state = torch.zeros((B, H, K, K))
     outs = []
     for c in range(n):
@@ -460,9 +483,16 @@ def kernel_rounding(r, k, v, log_w, u, split=SPLIT, exact=False):
         for p in range(L // WG_SUB):                         # the diagonal
             sl = slice(WG_SUB * p, WG_SUB * (p + 1))
             expo = cum_ex[:, sl, None] - cum[:, None, sl]
-            expo = torch.where(tri, expo, float("-inf"))
-            a[:, sl, sl] = (rb[:, sl, None] * kb[:, None, sl]
-                            * torch.exp(expo)).sum(-1) \
+            expo = torch.where(tri[..., None], expo, float("-inf"))
+            per_tid = (rb[:, sl, None] * kb[:, None, sl]
+                       * torch.exp(expo)).sum(-1)
+            ref = cum[:, WG_SUB * (p + 1) - 1][:, None]     # c_p
+            products = prod(
+                "bthk,bihk->btih", rb[:, sl] * torch.exp(cum_ex[:, sl] - ref),
+                "R", kb[:, sl] * torch.exp(ref - cum[:, sl]), "Kt")
+            a[:, sl, sl] = torch.where(
+                slow[:, c, None, None], per_tid,
+                torch.where(tri, products, 0.0)) \
                 + eye * (rb[:, sl] * uf * kb[:, sl]).sum(-1)[:, :, None]
         outs.append(o + prod("btih,bihv->bthv", a, "A", vb, "v"))
         kdec = kb * torch.exp(cum[:, -1:] - cum)
@@ -484,12 +514,19 @@ def _outside(got, want):
 PREFILL = (2, 2048, 32, 64)
 
 
-@pytest.mark.parametrize("decay", DECAYS)
+@pytest.mark.parametrize("decay", DECAYS + [-4.0])
 def test_kernel_rounding_meets_the_kernel_bound(decay):
     """With the operands of ``SPLIT`` each split into bf16 hi + lo, the
     bf16 form's arithmetic stays within ``KERNEL_TOL[bf16]`` of the plain
-    version in every element at the main path's shape."""
-    args = _inputs(*PREFILL, dtype=torch.bfloat16, seed=11, decay=decay)
+    version in every element at the main path's shape: on the main path's
+    decays and on log_w = -4 everywhere (a sub-chunk's cum falls 92 in log2
+    units, near ``WG_RANGE``), each of which takes the products diagonal in
+    every chunk."""
+    args = _inputs(*PREFILL, dtype=torch.bfloat16, seed=11,
+                   decay=decay if isinstance(decay, str) else "slow")
+    if not isinstance(decay, str):
+        args[3] = torch.full_like(args[3], decay)
+    assert not _slow_chunks(args[3]).any()
     got = kernel_rounding(*args)
     want = wkv6_torch(*args)
     assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
@@ -509,20 +546,41 @@ def test_rounding_one_operand_once_leaves_the_bound(operand):
     assert _outside(got, wkv6_torch(*args)) > 0
 
 
-@pytest.mark.parametrize("log_w", [rwkv6.LOG_W_MIN, -30.0],
-                         ids=["LOG_W_MIN", "below-the-clamp"])
+@pytest.mark.parametrize("log_w", [rwkv6.LOG_W_MIN, -30.0, -4.0],
+                         ids=["LOG_W_MIN", "below-the-clamp", "near-the-range"])
 def test_subchunk_factorisation_equals_the_plain_version(log_w):
     """The sub-chunk factorisation in f32, nothing rounded, is the plain
     version's arithmetic: within 1e-5, with every log_w at the model's
     clamp (a chunk's cum reaches -512) and below it (-30 a step: exp of a
-    whole sub-chunk's cum underflows).  Every exponent it takes is <= 0,
-    so nothing overflows, and nothing rests on the clamp."""
+    whole sub-chunk's cum underflows), where each full chunk's diagonal
+    goes per (t, i, d); at -4 (92 in log2 units a sub-chunk, within
+    ``WG_RANGE``: the diagonal as products with factors up to 2^92 and down
+    to 2^-92).  Every exponent below the diagonal is <= 0, so nothing
+    overflows, and nothing rests on the clamp."""
     r, k, v, _, u = _inputs(2, 200, 3, 64, seed=13)
     lw = torch.full_like(r, log_w)
+    slow = _slow_chunks(lw)[:, :-1]            # the full chunks
+    assert slow.all() if log_w < -4.0 else not slow.any()
     got = kernel_rounding(r, k, v, lw, u, exact=True)
     want = wkv6_torch(r, k, v, lw, u, chunk=WG_CHUNK)
     assert torch.isfinite(got).all()
     _close(got, want, 1e-5)
+
+
+def test_kernel_rounding_takes_both_diagonals_in_one_call():
+    """Mixed decays with head 0 at the model's clamp: the bf16 form forms
+    head 0's diagonal sub-blocks per (t, i, d) and the other heads' as
+    products in the same call, and its arithmetic stays within
+    ``KERNEL_TOL[bf16]`` of the plain version."""
+    args = _inputs(2, 512, 4, 64, dtype=torch.bfloat16, seed=15)
+    args[3][:, :, 0] = rwkv6.LOG_W_MIN
+    slow = _slow_chunks(args[3])
+    assert slow[..., 0].all() and not slow[..., 1:].any()
+    got = kernel_rounding(*args)
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().numpy(),
+                               wkv6_torch(*args).float().numpy(), atol=atol,
+                               rtol=rtol)
 
 
 def test_tma_readable_keeps_what_tma_reads_and_copies_the_rest():
@@ -630,7 +688,7 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous last axis"):
         ops.wkv6(strided, k, v, log_w, u)
     with pytest.raises(ValueError, match="geometry"):
-        ops.wkv6(r, k, v, log_w, u, geometry=ops.KEPT)     # f32: none
+        ops.wkv6(r, k, v, log_w, u, geometry="n32")        # f32: none
     with pytest.raises(ValueError, match="geometry"):
         ops.wkv6(r.bfloat16(), k.bfloat16(), v.bfloat16(), log_w, u,
                  geometry="n128")
