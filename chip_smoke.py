@@ -11,7 +11,9 @@ card, drives the port's paths through the user's entry points and times
 the kernels.  The execution path: ``ual.compile`` ->
 ``Executable.validate`` / ``run_batch`` on the ``cuda`` backend at the sizes
 the paper's users run (the benchmark kernels on HyCUBE 4x4 and PACE 8x8, an
-8192-word scratchpad, batches of 4096 test vectors).  The serving paths:
+8192-word scratchpad, batches of 4096 test vectors), then ``run_stream``,
+the execution ``Service`` (``submit`` and ``submit_stream``) and its circuit
+breaker on the same backend.  The serving paths:
 qwen3-8b (36 layers), zamba2-2.7b (54 Mamba-2 layers and 9 applications
 of the shared attention block) and rwkv6-1.6b (24 RWKV-6 blocks) at their
 published widths, random weights from the seed (zamba2's per-head decay from
@@ -36,9 +38,27 @@ Each phase prints one JSON line:
                    4096, the bound, the form and geometry of the launch
   geometry         gemm on HyCUBE: ms per launch at B = 128 and 4096 for
                    each geometry (one lane per thread, 32 lanes x W warps)
-  breakdown        gemm on HyCUBE: run_batch(4096) split on the host clock,
-                   device time by kernel and the device's idle share
-                   (torch.profiler)
+  breakdown        gemm on HyCUBE: run_batch(4096) on the host clock, its
+                   block split into staging in (flattened straight into the
+                   pinned buffer), device wait and unflatten, the array
+                   path beside it; device time by kind (copies each way,
+                   kernel, transposes) and idle share (torch.profiler);
+                   every host copy pinned (checked)
+  stream           gemm on HyCUBE and on PACE: run_stream of 16384 vectors,
+                   bit-exact vs sim, no new trace, 4 launches (checked);
+                   overlap_frac, wall, samples/s; the same stream profiled:
+                   pinned copies, and copies overlapping a kernel or an
+                   opposite copy on the device timeline (checked);
+                   --stream-repeats N runs the phase N times
+  service          Service on cuda, four tenant classes (gemm, fft, nw on
+                   HyCUBE, gemm on PACE), 8 client threads x 8192 requests
+                   and a fifth tenant's submit_stream of 16384: outputs vs
+                   sim, all completed, no error, no reject, no sweep
+                   degraded, launches >= sweeps, traces <= buckets
+                   (checked); p50/p99, samples/s, mean batch, spans
+  breaker          three injected cuda sweep faults: degraded_to sim x 4
+                   then cuda, one trip, one restore, the restoring request
+                   launched cgra_exec, outputs vs sim (checked)
   flash_attention  per case (bf16: the tensor-core form; f32: the CUDA-core
                    form): the kernel vs its plain version (per element
                    2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want| in bf16),
@@ -226,27 +246,65 @@ def time_ms(fn, reps: int, warmup: int = 1):
     return start.elapsed_time(end) / reps, host_ms
 
 
+#: device time of a CGRA run by kind: the copies each way, the kernel, the
+#: (B, M) <-> (M, B) transposes on the device (two elementwise copies), and
+#: the wrapper's copy of the image into the kernel's output (DtoD)
+CGRA_GROUPS = {
+    "h2d_ms": lambda n: n.startswith("memcpy htod"),
+    "d2h_ms": lambda n: n.startswith("memcpy dtoh"),
+    "kernel_ms": lambda n: "cgra_exec_kernel" in n,
+    "transpose_ms": lambda n: "elementwise_kernel" in n,
+    "image_copy_ms": lambda n: n.startswith("memcpy dtod"),
+}
+
+
 def breakdown(program, exe, rng, backend) -> dict:
-    """One warm ``run_batch`` of BATCH vectors on the ``cuda`` backend,
-    split on the host clock into flatten / engine / unflatten (through the
-    engine ``run_batch`` uses: the backend's lanes and device), and once
-    more under ``torch.profiler`` (``device_profile``)."""
+    """One warm ``run_batch`` of BATCH vectors on the ``cuda`` backend on
+    the host clock; the same block once more through the engine
+    ``run_batch`` uses (the backend's lanes and device), split into staging
+    in (flattening straight into the pinned buffer, and the enqueue),
+    waiting on the device and unflattening out of the pinned buffer; the
+    array path beside it (a (B, M) array flattened first, copied into the
+    pinned buffer, and out of it into a new (B, M) array, unflattened
+    after); then
+    ``run_batch`` under ``torch.profiler`` (``device_profile``, device time
+    by kind), whose host copies must all be pinned."""
     from repro_torch import ual
+    from repro_torch.ual.engine import Flattened
     mems = [program.random_inputs(rng) for _ in range(BATCH)]
+    n = program.n_iters
     exe.run_batch(mems)                                     # warm
-    engine = ual.default_engine()
+    engine = ual.default_engine().engine_for(
+        exe.lowered, lanes=backend.lanes, device=backend.device)
     t0 = time.perf_counter()
-    flats = program.flatten_batch(mems)
+    exe.run_batch(mems)
     t1 = time.perf_counter()
-    out, _ = engine.run(exe.lowered, flats, program.n_iters,
-                        lanes=backend.lanes, device=backend.device)
+    block = engine._submit(Flattened(program, mems), n)
     t2 = time.perf_counter()
-    program.unflatten_batch(out)
+    _, waited = engine._drain(block, consume=program.unflatten_batch)
     t3 = time.perf_counter()
+    flats = program.flatten_batch(mems)
+    t4 = time.perf_counter()
+    block = engine._submit(flats, n)
+    t5 = time.perf_counter()
+    out, array_wait = engine._drain(block)
+    t6 = time.perf_counter()
+    program.unflatten_batch(out)
+    t7 = time.perf_counter()
+    prof = device_profile(lambda: exe.run_batch(mems), CGRA_GROUPS)
+    check(prof["memcpy_kinds"] and all("Pinned" in k
+                                       for k in prof["memcpy_kinds"]
+                                       if "DtoD" not in k),
+          f"run_batch copied through pageable memory: "
+          f"{prof['memcpy_kinds']}")
     return {
-        "flatten_s": t1 - t0, "engine_run_s": t2 - t1,
-        "unflatten_s": t3 - t2, "run_batch_s": t3 - t0,
-        **device_profile(lambda: exe.run_batch(mems))}
+        "run_batch_s": t1 - t0, "stage_in_s": t2 - t1,
+        "device_wait_s": waited, "unflatten_s": t3 - t2 - waited,
+        "array_path": {"flatten_s": t4 - t3, "stage_in_s": t5 - t4,
+                       "device_wait_s": array_wait,
+                       "copy_out_s": t6 - t5 - array_wait,
+                       "unflatten_s": t7 - t6, "total_s": t7 - t3},
+        **prof}
 
 
 def device_profile(fn, groups=None) -> dict:
@@ -272,6 +330,8 @@ def device_profile(fn, groups=None) -> dict:
     busy_ms = sum(ev.device_time_total for ev in device) / 1e3
     top = sorted(device, key=lambda ev: -ev.device_time_total)[:10]
     out = {
+        "memcpy_kinds": sorted(ev.key for ev in device
+                               if ev.key.startswith("Memcpy")),
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms if device else None,
         "device_idle_share": 1 - busy_ms / wall_ms if device else None,
@@ -386,12 +446,12 @@ def cgra_shared_memory() -> dict:
     return {"shared_memory": out}
 
 
-def cgra_phases(dev, rng) -> dict:
+def cgra_phases(dev, rng):
     """The execution path: every pair compiled through the port's own
     toolchain, the kernel against its plain version, ``validate`` and
     ``run_batch`` on the ``cuda`` backend with the launches counted, the
     kernel's time, and a profile of ``run_batch``.  Returns the kernel's
-    summary entry."""
+    summary entry and the compiled pairs."""
     import torch
 
     from repro_torch import ual
@@ -564,7 +624,7 @@ def cgra_phases(dev, rng) -> dict:
 
     # ---- summary -------------------------------------------------------------
     lead = rows[("gemm", "hycube")]
-    return {
+    return compiled, {
         "name": "cgra_exec", "route": "cuda",
         "source": "src/repro_torch/kernels/cgra_exec/csrc/cgra_exec.cu",
         "replaces": "src/repro/kernels/cgra_exec/kernel.py:83",
@@ -575,6 +635,274 @@ def cgra_phases(dev, rng) -> dict:
         "library_ms": None, "form": lead["form"],
         "shape": f"gemm on {lead['fabric']}, M={lead['M']}, B={BATCH}, "
                  f"n_iters={lead['n_iters']}"}
+
+
+#: the stream phase: 16384 vectors, four chunks of the cuda engine's 4096
+STREAM_B = 4 * BATCH
+STREAM_PAIRS = (("gemm", "hycube"), ("gemm", "pace"))
+#: the service phase: four tenant classes at M = 8192, 8 client threads
+#: submitting 8192 single-vector requests in all, and a fifth tenant's
+#: stream of STREAM_B vectors beside them
+SERVICE_CLASSES = (("gemm", "hycube"), ("fft", "hycube"), ("nw", "hycube"),
+                   ("gemm", "pace"))
+SERVICE_REQUESTS, SERVICE_CLIENTS = 8192, 8
+#: room for every request of the phase at once: a stream is admitted all
+#: or nothing, so with room for the stream alone no discrete request would
+#: be admitted while the stream waits
+SERVICE_QUEUE = SERVICE_REQUESTS + STREAM_B
+
+
+def words_differ(outs, want, program) -> int:
+    return sum(int((o[a] != w[a]).sum()) for o, w in zip(outs, want)
+               for a in program.outputs)
+
+
+def timeline(fn) -> dict:
+    """Run ``fn`` under ``torch.profiler`` and read the device timeline:
+    the memcpy kinds, the device's busy time (the union of its events)
+    and idle share, and the copies that overlap a kernel or a copy of the
+    other direction (the work of one block runs in order, so such an
+    overlap is between two blocks)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                    for ev in prof.events()
+                    if ev.device_type == DeviceType.CUDA
+                    and ev.time_range.end > ev.time_range.start)
+
+    def kind(name):
+        for d in ("HtoD", "DtoH"):
+            if name.startswith("Memcpy " + d):
+                return d
+        return "other copy" if name.startswith("Mem") else "kernel"
+
+    busy, end = 0.0, None
+    for a, z, _ in events:
+        if end is None or a > end:
+            busy += z - a
+            end = z
+        elif z > end:
+            busy += z - end
+            end = z
+    copies = [(a, z, kind(n)) for a, z, n in events
+              if kind(n) in ("HtoD", "DtoH")]
+    overlapping, overlap_us = 0, 0.0
+    for a, z, k in copies:
+        spans = [(max(a, a2), min(z, z2)) for a2, z2, n2 in events
+                 if kind(n2) not in (k, "other copy")
+                 and a2 < z and a < z2]
+        if spans:
+            overlapping += 1
+            overlap_us += max(b - a1 for a1, b in spans)
+    kinds: dict = {}
+    for _, _, n in events:
+        if n.startswith("Memcpy"):
+            kinds[n] = kinds.get(n, 0) + 1
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / 1e3 / wall_ms,
+            "memcpy_kinds": kinds, "copies": len(copies),
+            "overlapping_copies": overlapping,
+            "overlapped_copy_ms": overlap_us / 1e3}
+
+
+def stream_phases(dev, rng, compiled) -> int:
+    """``Executable.run_stream`` of STREAM_B vectors on the ``cuda``
+    backend, gemm on HyCUBE 4x4 and on PACE 8x8: bit-exact against
+    ``sim``, no new trace after the warm-up, one launch a chunk; then the
+    same stream once more under ``torch.profiler``, whose copies must all
+    be pinned and at least one of them overlap a kernel or a copy of the
+    other direction.  Returns the launches."""
+    from repro_torch import ual
+    from repro_torch.kernels.cgra_exec import ops
+
+    backend = ual.get_backend("cuda")
+    launches = 0
+    for kname, fab in STREAM_PAIRS:
+        program, exe = compiled[(kname, fab)]
+        mems = [program.random_inputs(rng) for _ in range(STREAM_B)]
+        exe.warmup()
+        engine = ual.default_engine().engine_for(
+            exe.lowered, lanes=backend.lanes, device=backend.device)
+        traces = engine.traces
+        ops.reset_launches()
+        outs = [out for chunk in exe.run_stream(mems) for out in chunk]
+        n = ops.launches()
+        info = dict(exe.last_info)
+        diff = words_differ(outs, exe.run_batch(mems, backend="sim"),
+                            program)
+        check(diff == 0, f"{kname}@{fab}: run_stream(cuda) != sim in "
+                         f"{diff} words")
+        check(engine.traces == traces and info["traced"] == 0,
+              f"{kname}@{fab}: the warm stream traced "
+              f"{engine.traces - traces} new shapes")
+        check(n == STREAM_B // BATCH and info["stream_chunks"] == n,
+              f"{kname}@{fab}: a stream of {STREAM_B} made {n} launches in "
+              f"{info['stream_chunks']} chunks")
+        launches += n
+
+        def drain():
+            for _ in exe.run_stream(mems):
+                pass
+
+        prof = timeline(drain)
+        check(prof["memcpy_kinds"] and all(
+            "Pinned" in k for k in prof["memcpy_kinds"] if "DtoD" not in k),
+            f"{kname}@{fab}: the stream copied through pageable memory: "
+            f"{prof['memcpy_kinds']}")
+        check(prof["overlapping_copies"] > 0,
+              f"{kname}@{fab}: no copy of the stream overlapped a kernel or "
+              f"an opposite copy on the device")
+        emit("stream", kernel=kname, fabric=exe.target.fabric.name,
+             samples=STREAM_B, chunks=info["stream_chunks"], launches=n,
+             agrees_with_sim=True, new_traces=0,
+             overlap_frac=info["overlap_frac"], wall_s=info["wall_s"],
+             wait_s=info["wait_s"], throughput_sps=info["throughput_sps"],
+             profiled=prof)
+    return launches
+
+
+def service_phase(rng, compiled) -> int:
+    """``Service`` on the ``cuda`` backend: SERVICE_CLIENTS threads submit
+    SERVICE_REQUESTS single-vector requests over four tenant classes while
+    a fifth tenant streams STREAM_B vectors (``submit_stream``).  Every
+    output bit-equal to ``sim``, every request completed, no error, no
+    reject, no sweep degraded to ``sim``, at least one launch a sweep, and
+    at most one trace a bucket per engine.  Returns the launches."""
+    import threading
+
+    from repro_torch import ual
+    from repro_torch.kernels.cgra_exec import ops
+
+    classes = [compiled[key] for key in SERVICE_CLASSES]
+    mems = [classes[i % len(classes)][0].random_inputs(rng)
+            for i in range(SERVICE_REQUESTS)]
+    bulk_program, bulk_exe = compiled[SERVICE_CLASSES[0]]
+    bulk = [bulk_program.random_inputs(rng) for _ in range(STREAM_B)]
+    futs = [None] * SERVICE_REQUESTS
+    svc = ual.Service(max_batch=512, max_wait_ms=2,
+                      max_queue=SERVICE_QUEUE)
+
+    def client(c: int) -> None:
+        for i in range(c, SERVICE_REQUESTS, SERVICE_CLIENTS):
+            program, exe = classes[i % len(classes)]
+            futs[i] = svc.submit(program, exe.target, mems[i],
+                                 tenant=f"{program.name}@"
+                                        f"{exe.target.fabric.name}")
+
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVICE_CLIENTS)]
+        for t in threads:
+            t.start()
+        stream = svc.submit_stream(bulk_program, bulk_exe.target, bulk,
+                                   tenant="bulk")
+        for t in threads:
+            t.join()
+        outs = [f.result(timeout=600) for f in futs]
+        bulk_outs = stream.results(timeout=600)
+        wall = time.perf_counter() - t0
+        stats = svc.stats()
+    finally:
+        svc.shutdown()
+    launches = ops.launches()
+    diff = 0
+    for k, (program, exe) in enumerate(classes):
+        idx = range(k, SERVICE_REQUESTS, len(classes))
+        diff += words_differ([outs[i] for i in idx], exe.run_batch(
+            [mems[i] for i in idx], backend="sim"), program)
+    diff += words_differ(bulk_outs, bulk_exe.run_batch(bulk, backend="sim"),
+                         bulk_program)
+    check(diff == 0, f"service outputs != sim in {diff} words")
+    total = SERVICE_REQUESTS + STREAM_B
+    check(stats["completed"] == total and stats["errors"] == 0
+          and stats["rejected"] == 0,
+          f"service: {stats['completed']} of {total} completed, "
+          f"{stats['errors']} errors, rejects {stats['rejects']}")
+    check(stats["breaker"]["degraded_batches_total"] == 0,
+          f"service: {stats['breaker']['degraded_batches_total']} sweeps "
+          f"degraded to sim")
+    sweeps = stats["batches"] + stats["stream"]["chunks"]
+    check(launches >= sweeps, f"service: {launches} launches for {sweeps} "
+                              f"sweeps")
+    engines = stats["engine"]["per_engine"]
+    check(all(e["traces"] <= len(e["buckets"]) for e in engines.values()),
+          "service: an engine traced more shapes than it has buckets")
+    emit("service", classes=[f"{k}@{f}" for k, f in SERVICE_CLASSES],
+         M=classes[0][0].layout.total_words, requests=SERVICE_REQUESTS,
+         clients=SERVICE_CLIENTS, stream_samples=STREAM_B,
+         max_batch=512, max_wait_ms=2, max_queue=SERVICE_QUEUE,
+         agrees_with_sim=True, wall_s=wall, samples_per_s=total / wall,
+         completed=stats["completed"], errors=stats["errors"],
+         rejected=stats["rejected"],
+         degraded_batches=stats["breaker"]["degraded_batches_total"],
+         p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
+         mean_batch=stats["mean_batch"], batches=stats["batches"],
+         exec_samples_per_s=stats["exec_samples_per_s"],
+         stream=stats["stream"], stream_info=stream.info,
+         launches=launches, sweeps=sweeps,
+         traces={k: e["traces"] for k, e in engines.items()})
+    return launches
+
+
+def breaker_phase(rng, compiled) -> int:
+    """The circuit breaker on the card: three injected ``cuda`` sweep
+    failures (threshold 2, cooldown 0.8 s) degrade four requests to
+    ``sim`` and trip the class once; the second half-open probe restores
+    it, and that request launches ``cgra_exec``.  Outputs bit-exact.
+    Returns the launches of the restoring request."""
+    from repro_torch import ual
+    from repro_torch.kernels.cgra_exec import ops
+    from repro_torch.ual import faults
+
+    program, exe = compiled[("gemm", "hycube")]
+    mems = [program.random_inputs(rng) for _ in range(5)]
+    want = exe.run_batch(mems, backend="sim")
+    cooldown = 0.8
+    infos, launched = [], []
+    faults.install(ual.FaultPlan(
+        [ual.FaultSpec("exec_fault", backend="cuda", count=3)]))
+    try:
+        with ual.Service(max_batch=4, max_wait_ms=5, breaker_threshold=2,
+                         breaker_cooldown_s=cooldown) as svc:
+            outs = []
+            for i, mem in enumerate(mems):
+                if i in (3, 4):
+                    time.sleep(cooldown + 0.1)    # let the class half-open
+                ops.reset_launches()
+                resp = svc.submit(program, exe.target, mem)
+                outs.append(resp.result(timeout=600))
+                launched.append(ops.launches())
+                infos.append(resp.info.get("degraded_to"))
+            stats = svc.stats()
+    finally:
+        faults.clear()
+    diff = words_differ(outs, want, program)
+    check(diff == 0, f"breaker: outputs != sim in {diff} words")
+    check(infos == ["sim"] * 4 + [None],
+          f"breaker: degraded_to {infos}, want ['sim'] * 4 + [None]")
+    brk = stats["breaker"]
+    (cls,) = brk["classes"].values()
+    check(brk["trips_total"] == 1 and cls["restores"] == 1
+          and cls["state"] == "closed",
+          f"breaker: {brk['trips_total']} trips, {cls['restores']} restores, "
+          f"state {cls['state']}")
+    check(launched[-1] >= 1, "breaker: the restoring request did not "
+                             "launch cgra_exec")
+    emit("breaker", kernel="gemm", fabric=exe.target.fabric.name,
+         degraded_to=infos, trips=brk["trips_total"],
+         restores=cls["restores"], degraded_batches=cls["degraded_batches"],
+         launches_per_request=launched, agrees_with_sim=True)
+    return launched[-1]
 
 
 def attention_bound(B, Sq, Skv, H, KV, D, dtype, causal, window):
@@ -1294,6 +1622,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the prompts and the random weights")
+    ap.add_argument("--stream-repeats", type=int, default=1,
+                    help="rounds of the stream phase (each checked and "
+                         "printed)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from the root of a repo checkout "
@@ -1319,7 +1650,14 @@ def main(argv=None) -> int:
          python=sys.version.split()[0])
 
     sass = build_all()
-    cgra = cgra_phases(dev, np.random.default_rng(args.seed))
+    rng = np.random.default_rng(args.seed)
+    compiled, cgra = cgra_phases(dev, rng)
+    cgra["launches_by_path"] = {
+        "run_batch": cgra["launches"],
+        "stream": sum(stream_phases(dev, rng, compiled)
+                      for _ in range(args.stream_repeats)),
+        "service": service_phase(rng, compiled),
+        "breaker": breaker_phase(rng, compiled)}
     flash = flash_phases(dev, sass["flash_attention"])
     ssd = ssd_phases(dev, sass["mamba2_ssd"])
     wkv = wkv_phases(dev, sass["rwkv6"])

@@ -423,16 +423,27 @@ def unflatten_memory(layout: DataLayout, flat: np.ndarray,
 
 
 def flat_memory_batch(layout: DataLayout,
-                      mems: List[Dict[str, np.ndarray]]) -> np.ndarray:
+                      mems: List[Dict[str, np.ndarray]],
+                      out: Optional[np.ndarray] = None) -> np.ndarray:
     """Batched ``flat_memory``: B named-array dicts -> (B, total_words).
 
     One allocation and one vectorized assignment per *array name* instead
     of a Python loop over samples — the hot path of every natively-batched
     backend.  Samples may still omit arrays (zero-filled) or pass short
     arrays; only such ragged names fall back to a per-sample copy.
+    ``out`` (a (B, total_words) int32 array) is zeroed and filled in place
+    of a new allocation: the execution engine flattens straight into its
+    pinned staging buffer this way.
     """
     B = len(mems)
-    flat = np.zeros((B, layout.total_words), INT)
+    if out is None:
+        flat = np.zeros((B, layout.total_words), INT)
+    else:
+        if out.shape != (B, layout.total_words) or out.dtype != INT:
+            raise ValueError(f"out must be a ({B}, {layout.total_words}) "
+                             f"int32 array, got {out.dtype} {out.shape}")
+        flat = out
+        flat[...] = 0
     for name, base in layout.bases.items():
         rows = [m.get(name) for m in mems]
         present = [r for r in rows if r is not None]

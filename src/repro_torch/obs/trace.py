@@ -526,12 +526,12 @@ def _main(argv: Optional[List[str]] = None) -> int:
 
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.obs.trace",
-        description="Trace a demo compile and run end to end and export "
+        description="Trace a demo service run end to end and export "
                     "Chrome-trace JSON, or inspect an existing trace file.")
     ap.add_argument("--out", default="artifacts/trace/demo_trace.json",
                     help="output path for the Chrome-trace JSON")
     ap.add_argument("--requests", type=int, default=16,
-                    help="demo batch size to trace (default 16)")
+                    help="demo requests to trace (default 16)")
     ap.add_argument("--inspect", metavar="FILE",
                     help="validate + summarize an existing trace file "
                          "instead of running the demo")
@@ -555,7 +555,7 @@ def _main(argv: Optional[List[str]] = None) -> int:
             print(f"  PROBLEM: {p}")
         return 1 if problems else 0
 
-    # Demo: trace one compile and one batched run on the sim backend.
+    # Demo: trace one service run on the sim backend.
     import numpy as np
     from repro_torch import obs, ual
 
@@ -566,11 +566,19 @@ def _main(argv: Optional[List[str]] = None) -> int:
                                       backend="sim")
         program = ual.Program.from_kernel(
             "gemm", n_banks=target.fabric.n_mem_ports)
-        exe = ual.compile(program, target)
         rng = np.random.default_rng(0)
-        exe.run_batch([program.random_inputs(rng)
-                       for _ in range(args.requests)])
-        print(Tracer.render_tree(tracer.tree(tracer.spans()[0].trace_id)))
+        with ual.Service(max_batch=8, max_wait_ms=2.0) as svc:
+            futs = [svc.submit(program, target, program.random_inputs(rng),
+                               tenant=f"tenant{i % 2}")
+                    for i in range(args.requests)]
+            for fut in futs:
+                fut.result(timeout=60.0)
+        first = futs[0].info.get("trace", {})
+        if first:
+            print("request 0 breakdown:",
+                  {k: round(v, 3) for k, v in first.items()
+                   if isinstance(v, (int, float))})
+            print(Tracer.render_tree(tracer.tree(first["trace_id"])))
         out = tracer.export_chrome(args.out)
         n = len(tracer.spans())
         print(f"wrote {n} spans -> {out} "

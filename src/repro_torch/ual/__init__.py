@@ -24,13 +24,29 @@ Vocabulary, as in the reference:
   * ``CompiledKernelCache``/``default_engine`` — the persistent engine
     behind the ``cuda`` and ``torch`` backends: tables uploaded to the
     device once, ``n_iters`` a kernel argument, batch sizes padded up a
-    bucket ladder.
+    bucket ladder, blocks staged through pinned host buffers, and
+    ``run_stream`` double-buffered over three CUDA streams,
+  * ``Service``  — the dynamic-batching execution service
+    (``repro_torch.ual.service``): single-sample requests are queued,
+    coalesced into micro-batches per ``(program.digest, target.digest)``
+    class and executed as one ``run_batch`` sweep on shared warm
+    Executables; ``submit`` returns a ``Response`` future, overload and
+    expired deadlines come back as ``ServiceRejected`` verdicts, a
+    per-class ``CircuitBreaker`` degrades a failing ``cuda`` (or
+    ``torch``) class to the bit-exact ``sim`` backend and counts it;
+    ``submit_stream`` is the bulk path (``StreamResponse``);
+    ``Service(replicas=N)`` routes micro-batches over replica slots
+    (``Router``),
+  * ``FaultPlan``/``FaultSpec`` — deterministic fault injection
+    (``repro_torch.ual.faults``; ``InjectedFault`` is what an
+    ``exec_fault`` raises).
 
 Backends: ``interp`` (the DFG oracle), ``sim`` (the vectorized numpy
 simulator), ``cuda`` (the hand-written kernel on the card; raises with no
 CUDA device) and ``torch`` (the kernel's plain PyTorch version on the CPU).
-Not ported yet: ``Service``, ``ClusterService``, fault plans, ``explore``
-and ``compile_many``, the sharded engine and streaming engine, ``check``.
+Not ported yet: ``ClusterService`` and ``RestartPolicy`` (worker
+processes and their supervision), the sharded engine, ``explore``,
+``compile_many``, ``DesignPoint``, ``ExploreReport`` and ``check``.
 """
 from repro_torch.analysis.verifier import (CheckReport, Diagnostic,
                                            VerifyError, verify)
@@ -42,7 +58,9 @@ from repro_torch.ual.backends import (Backend, get_backend, list_backends,
 from repro_torch.ual.cache import (CACHE_VERSION, CacheStats, MappingCache,
                                    default_cache, default_cache_dir,
                                    set_default_cache)
+from repro_torch.ual.cluster import Router
 from repro_torch.ual.compiler import compile
+from repro_torch.ual.faults import FaultPlan, FaultSpec, InjectedFault
 from repro_torch.ual.engine import (CompiledKernelCache, KernelEngine,
                                     bucket_ladder, default_engine,
                                     set_default_engine)
@@ -50,15 +68,21 @@ from repro_torch.ual.executable import CompileInfo, Executable, PassRecord
 from repro_torch.ual.pipeline import (CompileContext, CompilePass, Pipeline,
                                       VerifyPass, default_pipeline)
 from repro_torch.ual.program import Program
+from repro_torch.ual.service import (Response, Service, ServiceRejected,
+                                     StreamResponse)
+from repro_torch.ual.service.breaker import CircuitBreaker
 from repro_torch.ual.target import (FABRICS, Target, list_fabrics,
                                     register_fabric)
 
 __all__ = [
     "Backend", "CACHE_VERSION", "CacheStats", "CheckReport",
-    "CompileContext", "CompileInfo", "CompiledKernelCache", "CompilePass",
-    "Diagnostic", "Executable", "FABRICS", "KernelEngine", "LinkedConfig",
-    "MapperStrategy", "MappingCache", "PassRecord", "Pipeline", "Program",
-    "Target", "VerifyError", "VerifyPass",
+    "CircuitBreaker", "CompileContext", "CompileInfo",
+    "CompiledKernelCache", "CompilePass", "Diagnostic", "Executable",
+    "FABRICS", "FaultPlan", "FaultSpec", "InjectedFault", "KernelEngine",
+    "LinkedConfig", "MapperStrategy", "MappingCache", "PassRecord",
+    "Pipeline", "Program", "Response", "Router", "Service",
+    "ServiceRejected", "StreamResponse", "Target", "VerifyError",
+    "VerifyPass",
     "bucket_ladder", "compile", "default_cache", "default_cache_dir",
     "default_engine", "default_pipeline", "get_backend", "link_config",
     "list_backends", "list_fabrics", "list_strategies", "register_backend",

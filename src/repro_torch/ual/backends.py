@@ -88,8 +88,8 @@ class Backend:
 
         This default chunks the input through ``execute_batch`` — chunked
         delivery, but NO transfer/compute overlap (``overlap_frac`` 0.0).
-        Backends with an asynchronous device path may override it with a
-        genuinely pipelined implementation.
+        Backends with an asynchronous device path (``cuda``) override it
+        with a genuinely pipelined implementation.
         """
         step = max(1, int(chunk) if chunk else 32)
         n_chunks = 0
@@ -173,10 +173,15 @@ class EngineBackend(Backend):
     the device per engine, ``n_iters`` is a kernel argument, and batch
     sizes pad up the bucket ladder (``engine.bucket_ladder(lanes)``).
     ``lanes`` is the engine's largest bucket, one launch of the kernel:
-    batches above it run as ``lanes``-row chunks."""
+    batches above it run as ``lanes``-row chunks.
+
+    A per-call ``device=`` keyword (``supports_device``) pins the sweep to
+    one device of the backend's type — the replica router's placement
+    path; the engine cache keys engines on the device."""
 
     consumes_lowered = True
     accepts_flats = True
+    supports_device = True
 
     def __init__(self, device: str, lanes: int = 128):
         self.device = device
@@ -188,29 +193,74 @@ class EngineBackend(Backend):
         from repro_torch.ual.engine import default_engine
         return default_engine()
 
-    def execute(self, program, result, mem, n_iters, lowered=None):
+    def _engine_for(self, linked, device=None):
+        return self.engine.engine_for(linked, lanes=self.lanes,
+                                      device=device or self.device)
+
+    def execute(self, program, result, mem, n_iters, lowered=None,
+                device=None):
         outs, info = self.execute_batch(program, result, [mem], n_iters,
-                                        lowered=lowered)
+                                        lowered=lowered, device=device)
         return outs[0], info
 
     def execute_batch(self, program, result, mems, n_iters, lowered=None,
-                      flats=None):
-        if flats is None:
-            flats = program.flatten_batch(mems)
+                      device=None, flats=None):
+        """The samples are flattened straight into the engine's staging
+        buffer (unless the caller holds their images already, ``flats``)
+        and the outputs unflattened straight out of it."""
+        from repro_torch.ual.engine import Flattened
+        source = Flattened(program, mems) if flats is None else flats
         linked = _ensure_lowered(result, lowered)
-        out, info = self.engine.run(linked, flats, n_iters, lanes=self.lanes,
-                                    device=self.device)
+        parts, info = self._engine_for(linked, device).run(
+            source, n_iters, consume=program.unflatten_batch)
         info["batched"] = True
-        return program.unflatten_batch(out), info
+        return [out for part in parts for out in part], info
 
-    def warmup(self, program, result, lowered=None, buckets=None):
+    def execute_stream(self, program, result, mems, n_iters, *,
+                       chunk=None, lowered=None, device=None):
+        """Pipelined streaming: chunks flow through the engine's
+        double-buffered ``run_stream`` — while chunk *i* downloads, chunk
+        *i+1* uploads and computes and the host flattens the next
+        straight into its staging buffer; drained chunks are unflattened
+        straight out of theirs.  ``chunk``
+        defaults to, and is capped at, the engine's top bucket (4096 on
+        ``cuda``), so a stream adds no shape ``execute_batch`` would not
+        launch; the summary carries the engine's measured
+        ``overlap_frac``."""
+        from repro_torch.ual.engine import Flattened
+        eng = self._engine_for(_ensure_lowered(result, lowered), device)
+        top = eng.buckets[-1]
+        step = max(1, min(int(chunk), top)) if chunk else top
+
+        def blocks():
+            group = []
+            for m in mems:
+                group.append(m)
+                if len(group) >= step:
+                    yield Flattened(program, group)
+                    group = []
+            if group:
+                yield Flattened(program, group)
+
+        gen = eng.run_stream(blocks(), n_iters, chunk=step,
+                             consume=program.unflatten_batch)
+        while True:
+            try:
+                outs, cinfo = next(gen)
+            except StopIteration as stop:
+                summary = dict(stop.value or {})
+                summary["batched"] = True
+                return summary
+            yield outs, cinfo
+
+    def warmup(self, program, result, lowered=None, buckets=None,
+               device=None):
         """Launch the bucket ladder once for this program's scratchpad
         width (``n_iters`` is an argument, so one warm shape per bucket
         covers every trip count).  Returns the engine's stats."""
         linked = _ensure_lowered(result, lowered)
-        return self.engine.warmup(linked, program.layout.total_words,
-                                  buckets=buckets, lanes=self.lanes,
-                                  device=self.device)
+        return self._engine_for(linked, device).warmup(
+            program.layout.total_words, buckets)
 
 
 # ---------------------------------------------------------------------------

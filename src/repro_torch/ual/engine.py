@@ -20,20 +20,35 @@ engine.  It keeps the reference engine's contract (``repro.ual.engine``):
     bucket run as largest-bucket chunks — the number of distinct shapes
     stays O(#buckets) however traffic is shaped.
 
+On a CUDA device every block goes up and comes back through pinned host
+buffers, reused per ``(M, bucket)``, with the upload, the kernel and the
+download on three streams of their own (``KernelEngine``).  ``run_stream``
+pipelines bucket-sized chunks through them with **double buffering**:
+while chunk *i* downloads, chunk *i+1* uploads and computes and the host
+stages the next — the same bucket-ladder shapes (zero new traces on a warm
+engine).  Chunks are yielded as they drain; the generator's return value
+reports ``overlap_frac`` (the fraction of the wall the host spent working
+instead of blocked on the device), ``stream_chunks`` and throughput.  On
+the CPU the same generator runs each chunk in turn.
+
 The first launch of each ``(M, bucket)`` shape counts as a "trace", so
 ``stats()["traces"]`` means what it means on the reference engine: the
 number of distinct shapes this engine has specialised, at most one per
-bucket.  Every engine also counts calls, per-bucket hits and padding waste;
-``CompiledKernelCache.stats()`` aggregates them (``Executable.warmup()``
-reports them in ``last_info``).
+bucket.  Every engine also counts calls, per-bucket hits, padding waste
+and streaming activity (``streams``/``stream_chunks``);
+``CompiledKernelCache.stats()`` aggregates them (the execution service
+surfaces this in ``Service.stats()["engine"]``, and ``Executable.warmup()``
+reports it in ``last_info``).
 
-Not ported yet: the double-buffered ``run_stream`` and the multi-device
-sharded engine.
+Not ported yet: the multi-device sharded engine.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from collections import deque
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -72,12 +87,105 @@ def require_cuda() -> None:
             "(or device='cpu') to run the plain PyTorch version on the CPU")
 
 
+#: bytes of one staged piece on a CUDA device: the host fills a block's
+#: pinned buffer a piece at a time, each piece's upload enqueued as soon as
+#: it is filled, and the download comes back in pieces too (128 rows at an
+#: 8192-word scratchpad).
+STAGE_BYTES = 4 << 20
+
+
+class _Slot:
+    """One pinned host staging buffer of an ``(M, bucket)`` shape: the
+    block's rows go up from it and its results come back into it."""
+
+    __slots__ = ("host", "view")
+
+    def __init__(self, rows: int, M: int) -> None:
+        self.host = torch.empty((rows, M), dtype=torch.int32,
+                                pin_memory=True)
+        self.view = self.host.numpy()
+
+
+class _InFlight:
+    """One dispatched block: ``b`` live rows padded to ``rows``.  On a CUDA
+    device its results sit in ``d_out`` once ``done`` fires until their
+    download is enqueued (``d_out`` then goes to None), and land in
+    ``slot`` as ``events`` (one a piece) fire.  On the CPU ``out`` already
+    holds the results."""
+
+    __slots__ = ("b", "rows", "cold", "slot", "d_out", "done", "events",
+                 "out", "t_up", "t_disp")
+
+    def __init__(self, b: int, rows: int, slot: Optional[_Slot] = None,
+                 d_out=None, done=None, out: Optional[np.ndarray] = None
+                 ) -> None:
+        self.b = b
+        self.rows = rows
+        self.cold = False
+        self.slot = slot
+        self.d_out = d_out
+        self.done = done
+        self.events: List = []
+        self.out = out
+        self.t_up = self.t_disp = 0.0       # host clock around dispatch
+
+
+def _pieces(rows: int, M: int) -> List[Tuple[int, int]]:
+    step = max(1, STAGE_BYTES // (4 * M))
+    return [(r, min(r + step, rows)) for r in range(0, rows, step)]
+
+
+class Flattened:
+    """B named-array dicts standing for their (B, M) scratchpad images:
+    the engine flattens them (``program.flatten_batch(..., out=)``) a
+    piece at a time straight into its staging buffer, so no (B, M) array
+    of their own is made.  Slices like an array."""
+
+    def __init__(self, program, mems: Sequence[Dict[str, np.ndarray]]
+                 ) -> None:
+        self.program = program
+        self.mems = list(mems)
+        self.shape = (len(self.mems), program.layout.total_words)
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, rows: slice) -> "Flattened":
+        return Flattened(self.program, self.mems[rows])
+
+    def write(self, out: np.ndarray, r0: int, r1: int) -> None:
+        """Flatten samples ``r0:r1`` into ``out`` ((r1 - r0, M) int32)."""
+        self.program.flatten_batch(self.mems[r0:r1], out=out)
+
+
+def _write(block, out: np.ndarray, r0: int, r1: int) -> None:
+    """Rows ``r0:r1`` of a block (an array or ``Flattened``) into ``out``."""
+    if isinstance(block, Flattened):
+        block.write(out, r0, r1)
+    else:
+        out[...] = block[r0:r1]
+
+
 class KernelEngine:
     """One persistent engine: a lowered artifact on one device.
 
     Owns the device-resident tables and the per-``(M, bucket)`` warm-shape
     set; ``device`` is a CUDA device (the kernel) or the CPU (the plain
     version).
+
+    On a CUDA device every block is staged through a **pinned** host
+    buffer, allocated once per ``(M, bucket)`` and reused (a pool: a
+    buffer goes back to it only after its results are copied out, so no
+    buffer is refilled while a copy may still read or write it, and no
+    caller's result aliases one).  The upload, the kernel and the download
+    go on three CUDA streams of their own, ordered by events, without
+    blocking the host; the host fills the buffer in pieces of
+    ``STAGE_BYTES``, so a piece's upload runs while the host fills the
+    next.  In a pipeline of blocks a block's download waits for the next
+    block: the host fills that one's buffer whole, enqueues its upload as
+    one copy and the download right behind it, so the card's two copy
+    directions run at once; the last block downloads as soon as the
+    source ends.
     """
 
     def __init__(self, linked: LinkedConfig, *, lanes: int = 128,
@@ -95,13 +203,17 @@ class KernelEngine:
         self.tables = ops.upload_tables(linked, self.device)
         # _trace_lock serializes first launches of a shape (so concurrent
         # callers count exactly one trace per bucket); _stats_lock guards
-        # the counters and the warm-shape set
+        # the counters, the warm-shape set and the staging pool
         self.traces = 0
         self.calls = 0
         self.samples = 0
         self.padded_samples = 0
+        self.streams = 0             # run_stream invocations completed
+        self.stream_chunks = 0       # chunks drained across all streams
         self.bucket_calls: Dict[int, int] = {}
         self._warm: set = set()              # (M, bucket) already launched
+        self._free: Dict[Tuple[int, int], List[_Slot]] = {}
+        self._cuda_streams: Optional[Tuple[object, object, object]] = None
         self._trace_lock = threading.Lock()
         self._stats_lock = threading.Lock()
 
@@ -112,81 +224,325 @@ class KernelEngine:
                 return bk
         return self.buckets[-1]
 
-    def _launch(self, block: np.ndarray, n_iters: int) -> np.ndarray:
-        """One padded (bucket, M) block through the kernel and back."""
-        memT = torch.from_numpy(block).to(self.device).t().contiguous()
-        out = ops.cgra_exec(self.tables, memT, n_iters)
-        return out.t().contiguous().cpu().numpy()
+    # -- staging (CUDA) --------------------------------------------------------
+    def _acquire(self, M: int, rows: int) -> _Slot:
+        """A free pinned buffer of the shape; a new one only when every
+        buffer of the shape is in use (one per concurrent block)."""
+        with self._stats_lock:
+            free = self._free.get((M, rows))
+            if free:
+                return free.pop()
+        return _Slot(rows, M)
 
-    def _call_block(self, block: np.ndarray, n_iters: int
-                    ) -> Tuple[np.ndarray, bool]:
-        """Returns ``(out, was_cold)``: cold means THIS call was the first
-        launch of the ``(M, bucket)`` shape, counted as one trace."""
-        key = (block.shape[1], block.shape[0])
+    def _release(self, slot: _Slot) -> None:
+        with self._stats_lock:
+            self._free.setdefault(tuple(slot.host.shape[::-1]),
+                                  []).append(slot)
+
+    def _stream_set(self):
+        """(upload, compute, download) streams of this engine's device,
+        created on first use."""
+        with self._stats_lock:
+            if self._cuda_streams is None:
+                self._cuda_streams = tuple(
+                    torch.cuda.Stream(device=self.device) for _ in range(3))
+            return self._cuda_streams
+
+    def _download(self, fl: _InFlight) -> None:
+        """Enqueue a CUDA block's download, a piece at a time, each piece
+        followed by its event (once; a no-op after that and on the CPU)."""
+        if fl.d_out is None:
+            return
+        down = self._stream_set()[2]
+        with torch.cuda.device(self.device), torch.cuda.stream(down):
+            down.wait_event(fl.done)
+            fl.d_out.record_stream(down)
+            for r0, r1 in _pieces(fl.b, fl.d_out.shape[1]):
+                fl.slot.host[r0:r1].copy_(fl.d_out[r0:r1], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(down)
+                fl.events.append(ev)
+        fl.d_out = None
+
+    def _enqueue(self, block, rows: int, n_iters: int,
+                 before: Optional[_InFlight] = None) -> _InFlight:
+        """Start one (b, M) block (an array or ``Flattened``), padded to
+        ``rows``, through the kernel; returns without waiting for the
+        device (CUDA) or with the result (CPU, where the plain version
+        runs right here).  On CUDA the block's download is left to
+        ``_download``.  With ``before`` (a block whose download is still
+        to go) the buffer is filled whole and uploaded in one copy, with
+        ``before``'s download enqueued right behind it, so the two overlap
+        however slowly the host fills; else each piece goes up as soon as
+        it is filled."""
+        b, M = block.shape
+        if self.device.type == "cpu":
+            padded = np.zeros((rows, M), np.int32)
+            _write(block, padded[:b], 0, b)
+            out = ops.cgra_exec(self.tables,
+                                torch.from_numpy(padded).t().contiguous(),
+                                n_iters)
+            return _InFlight(b, rows, out=out.t().contiguous().numpy()[:b])
+        slot = self._acquire(M, rows)
+        up, compute, _ = self._stream_set()
+        whole = before is not None and before.d_out is not None
+        with torch.cuda.device(self.device):
+            with torch.cuda.stream(up):
+                d_in = torch.empty((rows, M), dtype=torch.int32,
+                                   device=self.device)
+                for r0, r1 in _pieces(rows, M):
+                    lo, hi = min(r0, b), min(r1, b)
+                    if hi > lo:
+                        _write(block, slot.view[lo:hi], lo, hi)
+                    slot.view[max(r0, b):r1] = 0     # bucket padding
+                    if not whole:
+                        d_in[r0:r1].copy_(slot.host[r0:r1], non_blocking=True)
+                if whole:
+                    d_in.copy_(slot.host, non_blocking=True)
+            if whole:
+                self._download(before)
+            compute.wait_stream(up)
+            with torch.cuda.stream(compute):
+                d_in.record_stream(compute)
+                out = ops.cgra_exec(self.tables, d_in.t().contiguous(),
+                                    n_iters)
+                d_out = out.t().contiguous()
+                done = torch.cuda.Event()
+                done.record(compute)
+        return _InFlight(b, rows, slot=slot, d_out=d_out, done=done)
+
+    def _drain(self, fl: _InFlight, into: Optional[np.ndarray] = None,
+               consume: Optional[Callable[[np.ndarray], object]] = None
+               ) -> Tuple[object, float]:
+        """Wait for one block and take its ``b`` result rows out of the
+        staging buffer: ``consume(rows)`` (which must copy what it keeps:
+        the buffer is reused) when given, else a copy (into ``into`` when
+        given).  Returns ``(result, host seconds blocked on the
+        device)``."""
+        if fl.slot is None:
+            if consume is not None:
+                return consume(fl.out), 0.0
+            if into is not None:
+                into[...] = fl.out
+                return into, 0.0
+            return fl.out, 0.0
+        self._download(fl)
+        view = fl.slot.view
+        out = None
+        if consume is None:
+            out = into if into is not None else np.empty(
+                (fl.b, view.shape[1]), np.int32)
+        waited = 0.0
+        for (r0, r1), ev in zip(_pieces(fl.b, view.shape[1]), fl.events):
+            t0 = time.perf_counter()
+            ev.synchronize()
+            waited += time.perf_counter() - t0
+            if out is not None:
+                out[r0:r1] = view[r0:r1]
+        if consume is not None:
+            out = consume(view[:fl.b])
+        self._release(fl.slot)
+        return out, waited
+
+    def _submit(self, block, n_iters: int,
+                before: Optional[_InFlight] = None) -> _InFlight:
+        """Dispatch one block of at most the top bucket's rows (finishing
+        ``before``'s download beside its upload).  The first launch of an
+        ``(M, bucket)`` shape runs to its end under the trace lock and
+        counts as this engine's one trace of the shape."""
+        rows = self.bucket_for(block.shape[0])
+        key = (block.shape[1], rows)
         with self._stats_lock:
             warm = key in self._warm
         if warm:
-            return self._launch(block, n_iters), False
+            return self._enqueue(block, rows, n_iters, before)
         with self._trace_lock:
             with self._stats_lock:
                 cold = key not in self._warm
                 if cold:
                     self.traces += 1
-            out = self._launch(block, n_iters)
+            fl = self._enqueue(block, rows, n_iters, before)
+            self._download(fl)
+            for ev in fl.events:
+                ev.synchronize()
+            fl.cold = cold
             with self._stats_lock:
                 self._warm.add(key)
-        return out, cold
+        return fl
 
-    def run(self, flats: np.ndarray, n_iters: int
-            ) -> Tuple[np.ndarray, Dict[str, object]]:
-        """Execute a (B, M) batch of scratchpad images for ``n_iters``.
+    def _pipeline(self, blocks: Iterable, n_iters: int,
+                  depth: int) -> Iterator[_InFlight]:
+        """Dispatch ``blocks`` in order; yield each one, oldest first, once
+        ``depth`` newer ones are in flight behind it (or the source has
+        ended).  Each block's download goes out beside the next block's
+        upload (``_enqueue``), the last one's when the source ends.  The consumer drains
+        each before asking for the next."""
+        inflight: deque = deque()
+        last: Optional[_InFlight] = None
+        for blk in blocks:
+            t_up = time.perf_counter()
+            fl = self._submit(blk, n_iters, before=last)
+            fl.t_up, fl.t_disp = t_up, time.perf_counter()
+            inflight.append(fl)
+            last = fl
+            while len(inflight) > depth:
+                yield inflight.popleft()
+        if last is not None:
+            self._download(last)
+        while inflight:
+            yield inflight.popleft()
 
-        Pads each chunk up the bucket ladder (B > largest bucket runs as
-        largest-bucket chunks) and slices the padding back off; returns
-        ``(out (B, M), per-call info)``.
-        """
-        flats = np.ascontiguousarray(flats, np.int32)
-        if flats.ndim != 2:
-            raise ValueError(f"expected (B, M) images, got {flats.shape}")
-        B, M = flats.shape
-        used: List[int] = []
-        cold_blocks = 0
-        top = self.buckets[-1]
-        if B <= top and self.bucket_for(B) == B:
-            # pad-free fast path: the batch IS a bucket
-            out, was_cold = self._call_block(flats, n_iters)
-            cold_blocks = int(was_cold)
-            used.append(B)
-        else:
-            out = np.empty((B, M), np.int32)
-            i = 0
-            while i < B:
-                chunk = min(B - i, top)
-                rows = self.bucket_for(chunk)
-                block = flats[i:i + chunk]
-                if rows != chunk:
-                    block = np.concatenate(
-                        [block, np.zeros((rows - chunk, M), np.int32)])
-                block_out, was_cold = self._call_block(block, n_iters)
-                out[i:i + chunk] = block_out[:chunk]
-                cold_blocks += was_cold
-                used.append(rows)
-                i += chunk
+    def _count(self, used: List[int], samples: int, stream_chunks: int = -1
+               ) -> int:
+        """Book one call (or one stream, when ``stream_chunks`` >= 0);
+        returns the engine's trace total."""
         with self._stats_lock:
             for rows in used:
                 self.bucket_calls[rows] = self.bucket_calls.get(rows, 0) + 1
-            self.padded_samples += sum(used) - B
+            self.padded_samples += sum(used) - samples
             self.calls += 1
-            self.samples += B
-            traces_total = self.traces
-        info = {
+            self.samples += samples
+            if stream_chunks >= 0:
+                self.streams += 1
+                self.stream_chunks += stream_chunks
+            return self.traces
+
+    def run(self, flats, n_iters: int, *,
+            consume: Optional[Callable[[np.ndarray], object]] = None
+            ) -> Tuple[object, Dict[str, object]]:
+        """Execute a (B, M) batch of scratchpad images (an array, or
+        ``Flattened`` samples) for ``n_iters``.
+
+        Pads each chunk up the bucket ladder (B > largest bucket runs as
+        largest-bucket chunks, two in flight behind the one draining) and
+        slices the padding back off; returns ``(out (B, M), per-call
+        info)`` — or, with ``consume``, ``([consume(rows) per chunk],
+        info)``, where ``rows`` is a chunk's results still in the staging
+        buffer (``consume`` copies what it keeps, as
+        ``Program.unflatten_batch`` does; no (B, M) result is made).
+        """
+        if not isinstance(flats, Flattened):
+            flats = np.ascontiguousarray(flats, np.int32)
+            if flats.ndim != 2:
+                raise ValueError(f"expected (B, M) images, got "
+                                 f"{flats.shape}")
+        B, M = flats.shape
+        top = self.buckets[-1]
+        out = [] if consume is not None else np.empty((B, M), np.int32)
+        used: List[int] = []
+        cold_blocks = 0
+        i = 0
+        for fl in self._pipeline((flats[j:j + top] for j in range(0, B, top)),
+                                 n_iters, depth=2):
+            if consume is not None:
+                out.append(self._drain(fl, consume=consume)[0])
+            else:
+                self._drain(fl, into=out[i:i + fl.b])
+            i += fl.b
+            used.append(fl.rows)
+            cold_blocks += fl.cold
+        traces_total = self._count(used, B)
+        return out, {
             "engine": self.name,
             "buckets": used,
             "padded": sum(used) - B,
             "traced": cold_blocks,
             "traces_total": traces_total,
         }
-        return out, info
+
+    # -- streaming ------------------------------------------------------------
+    def run_stream(self, source: Union[np.ndarray, Iterable],
+                   n_iters: int, *, chunk: Optional[int] = None,
+                   depth: int = 2,
+                   consume: Optional[Callable[[np.ndarray], object]] = None
+                   ) -> Iterator[Tuple[object, Dict[str, object]]]:
+        """Streaming execution: pipeline bucket-sized chunks with double
+        buffering, yielding ``(out_chunk (b, M), chunk_info)`` as each
+        chunk drains (``(consume(rows), chunk_info)`` with ``consume``,
+        as in ``run``).
+
+        ``source`` is a (B, M) batch or an iterable of (b, M) row blocks,
+        arrays or ``Flattened`` (blocks larger than ``chunk`` are
+        re-chunked; ``chunk`` defaults to, and is capped at, the top
+        bucket).  On a CUDA device up to
+        ``depth`` chunks are in flight behind the one draining: while
+        chunk *i* downloads, chunk *i+1* uploads and computes and the host
+        stages chunk *i+2* (and, through an iterable source, flattens the
+        next).  Chunks ride the same bucket-ladder shapes as ``run``: a
+        warm engine streams with ZERO new traces.  On the CPU the same
+        generator runs each chunk to its end in turn.
+
+        The generator's return value (``StopIteration.value``) is the
+        stream summary: ``stream_chunks``, ``samples``, ``buckets``,
+        ``padded``, ``traced``, ``traces_total``, ``wall_s``, ``wait_s``
+        (host time blocked on the device), ``overlap_frac`` = 1 -
+        wait/wall — the fraction of the wall the host spent staging other
+        chunks while the device worked — and ``throughput_sps``.  On the
+        CPU every chunk runs inside its dispatch, so nothing overlaps:
+        ``wait_s`` is the wall and ``overlap_frac`` 0.0, as for an empty
+        stream.
+        """
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        top = self.buckets[-1]
+        step = top if chunk is None else max(1, min(int(chunk), top))
+
+        def blocks() -> Iterator:
+            blks = [source] if isinstance(source, np.ndarray) else source
+            for blk in blks:
+                if not isinstance(blk, Flattened):
+                    blk = np.ascontiguousarray(blk, np.int32)
+                for i in range(0, len(blk), step):
+                    yield blk[i:i + step]
+
+        t_start = time.perf_counter()
+        wait_s = 0.0
+        used: List[int] = []
+        cold_blocks = 0
+        n_samples = 0
+        tr = obs.tracer()
+        tron = tr.enabled
+        # one trace groups every chunk span of this stream in the export
+        stream_trace = tr.new_trace_id() if tron else None
+        for n_chunks, fl in enumerate(self._pipeline(blocks(), n_iters,
+                                                     depth)):
+            t0 = time.perf_counter()
+            out, waited = self._drain(fl, consume=consume)
+            wait_s += waited
+            cold_blocks += fl.cold
+            used.append(fl.rows)
+            n_samples += fl.b
+            info = {"chunk": n_chunks, "bucket": fl.rows, "samples": fl.b,
+                    "traced": int(fl.cold)}
+            if tron:
+                # device-busy window approximated from dispatch end to
+                # ready; drain = the copy out of the staging buffer
+                t_ready = t0 + waited
+                for name, a, z in (("stream:upload", fl.t_up, fl.t_disp),
+                                   ("stream:compute", fl.t_disp, t_ready),
+                                   ("stream:drain", t_ready,
+                                    time.perf_counter())):
+                    tr.record(name, a, z, cat="engine", trace=stream_trace,
+                              args=info)
+            yield out, info
+        wall = time.perf_counter() - t_start
+        if self.device.type == "cpu":
+            wait_s = wall
+        traces_total = self._count(used, n_samples, len(used))
+        return {
+            "engine": self.name,
+            "stream_chunks": len(used),
+            "samples": n_samples,
+            "buckets": used,
+            "padded": sum(used) - n_samples,
+            "traced": cold_blocks,
+            "traces_total": traces_total,
+            "wall_s": wall,
+            "wait_s": wait_s,
+            "overlap_frac": (round(max(0.0, 1.0 - wait_s / wall), 4)
+                             if wall > 0 and used else 0.0),
+            "throughput_sps": n_samples / wall if wall > 0 else 0.0,
+        }
 
     def warmup(self, M: int,
                buckets: Optional[Sequence[int]] = None) -> Dict[str, object]:
@@ -212,6 +568,8 @@ class KernelEngine:
                 "calls": self.calls,
                 "samples": self.samples,
                 "padded_samples": self.padded_samples,
+                "streams": self.streams,
+                "stream_chunks": self.stream_chunks,
                 "warm_shapes": sorted(self._warm),
             }
         calls = sum(bucket_calls.values())
@@ -260,6 +618,17 @@ class CompiledKernelCache:
         return self.engine_for(linked, lanes=lanes,
                                device=device).run(flats, n_iters)
 
+    def run_stream(self, linked: LinkedConfig, source, n_iters: int, *,
+                   chunk: Optional[int] = None, depth: int = 2,
+                   lanes: int = 128, device="cuda"
+                   ) -> Iterator[Tuple[np.ndarray, Dict[str, object]]]:
+        """Streaming execution through the cached engine for ``linked``
+        (see ``KernelEngine.run_stream``); yields drained chunks, returns
+        the stream summary via ``StopIteration.value``."""
+        return self.engine_for(linked, lanes=lanes, device=device
+                               ).run_stream(source, n_iters, chunk=chunk,
+                                            depth=depth)
+
     def warmup(self, linked: LinkedConfig, M: int, *,
                buckets: Optional[Sequence[int]] = None, lanes: int = 128,
                device="cuda") -> Dict[str, object]:
@@ -283,6 +652,8 @@ class CompiledKernelCache:
             "calls": sum(e["calls"] for e in per.values()),
             "samples": sum(e["samples"] for e in per.values()),
             "padded_samples": sum(e["padded_samples"] for e in per.values()),
+            "streams": sum(e["streams"] for e in per.values()),
+            "stream_chunks": sum(e["stream_chunks"] for e in per.values()),
             "hit_ratio": round(hits / bucket_calls, 4) if bucket_calls
             else None,
             "per_engine": per,

@@ -17,10 +17,12 @@ registered backend with automatic flatten/unflatten of the named arrays:
         consume(chunk)                       # later chunks still compute
     exe.last_info["overlap_frac"]            # transfer/compute overlap
 
-Streaming (``run_stream`` / ``run_batch(stream=True)``) delivers the
-batch through the backend in chunks; every backend of this package uses
-the chunked synchronous default (``Backend.execute_stream``) until the
-engine's double-buffered streaming is ported.  The stream summary
+Streaming (``run_stream`` / ``run_batch(stream=True)``) pipelines the
+batch through the backend in bucket-sized chunks — on the cuda backend
+chunk *i* downloads while *i+1* uploads and computes and the host stages
+the next (double buffering through pinned host buffers on three CUDA
+streams); the torch backend runs the same chunks in turn, and sim and
+interp fall back to chunked synchronous delivery.  The stream summary
 (``stream_chunks``, ``overlap_frac``, ``throughput_sps``) lands in
 ``last_info`` at exhaustion and is also the generator's return value
 (``StopIteration.value``) for concurrent sharers.
@@ -256,7 +258,7 @@ class Executable:
         (``throughput_sps``, samples/s) are recorded in ``last_info``.
 
         ``stream=True`` runs the batch through the backend's streaming
-        path instead (chunked delivery); the results
+        path instead (double buffering on cuda); the results
         come back as one flat list but ``last_info`` carries the stream
         summary (``stream_chunks``, ``overlap_frac``).  Use
         ``run_stream`` to consume chunks as they drain.
@@ -302,8 +304,9 @@ class Executable:
                    chunk: Optional[int] = None):
         """Streaming execution: a generator yielding lists of output
         dicts chunk-by-chunk as results drain from the device, while
-        later chunks are still to run (chunked synchronous delivery on
-        every backend of this package for now).
+        later chunks are still uploading/computing (double buffering on
+        the cuda backend — same bucket-ladder shapes as ``run_batch``,
+        zero new traces on a warm engine).
 
         ``chunk`` bounds samples per chunk (default: the engine's top
         warm bucket).  At exhaustion ``last_info`` holds the stream

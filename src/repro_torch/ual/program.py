@@ -83,15 +83,17 @@ class Program:
     def unflatten(self, flat: np.ndarray) -> Dict[str, np.ndarray]:
         return unflatten_memory(self.layout, flat, self.dfg.arrays)
 
-    def flatten_batch(self, mems: Sequence[Dict[str, np.ndarray]]
-                      ) -> np.ndarray:
+    def flatten_batch(self, mems: Sequence[Dict[str, np.ndarray]],
+                      out: Optional[np.ndarray] = None) -> np.ndarray:
         """Batched ``flatten``: B dicts -> (B, total_words) in one
         vectorized pass per array name (no per-sample Python loop) — what
-        the natively-batched backends feed the engines."""
+        the natively-batched backends feed the engines.  ``out`` is
+        internal: the engine passes its staging buffer's rows to flatten
+        into them in place."""
         mems = list(mems)
         for m in mems:
             self.check_arrays(m)
-        return flat_memory_batch(self.layout, mems)
+        return flat_memory_batch(self.layout, mems, out)
 
     def unflatten_batch(self, flats: np.ndarray
                         ) -> "list[Dict[str, np.ndarray]]":

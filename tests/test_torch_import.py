@@ -21,6 +21,8 @@ def test_import_pulls_in_no_jax_and_no_cuda():
     code = (
         "import sys, torch\n"
         "import repro_torch, repro_torch.ual, repro_torch.interop\n"
+        "import repro_torch.ual.service, repro_torch.ual.faults\n"
+        "import repro_torch.ual.cluster\n"
         "import repro_torch.kernels.cgra_exec.ops\n"
         "import repro_torch.kernels.cgra_exec.edge_cases\n"
         "import repro_torch.kernels.flash_attention.ops\n"
