@@ -13,7 +13,9 @@ the kernels.  The execution path: ``ual.compile`` ->
 the paper's users run (the benchmark kernels on HyCUBE 4x4 and PACE 8x8, an
 8192-word scratchpad, batches of 4096 test vectors), then ``run_stream``,
 the execution ``Service`` (``submit`` and ``submit_stream``) and its circuit
-breaker on the same backend.  The serving paths:
+breaker on the same backend, the sharded engine (``cuda_sharded``), the
+process cluster (``ClusterService``, with a worker killed and respawned)
+and the design-space front end (``explore``).  The serving paths:
 qwen3-8b (36 layers), zamba2-2.7b (54 Mamba-2 layers and 9 applications
 of the shared attention block) and rwkv6-1.6b (24 RWKV-6 blocks) at their
 published widths, random weights from the seed (zamba2's per-head decay from
@@ -59,6 +61,28 @@ Each phase prints one JSON line:
   breaker          three injected cuda sweep faults: degraded_to sim x 4
                    then cuda, one trip, one restore, the restoring request
                    launched cgra_exec, outputs vs sim (checked)
+  sharded          gemm on HyCUBE and PACE, run_batch of 4096 and 4097 on
+                   cuda_sharded (every card, one block plan): vs sim, the
+                   engine and n_devices (= the card count), one launch a
+                   device a block, traces <= buckets (checked); wall
+  cluster          ClusterService(workers=2) on cuda, a fresh cache dir,
+                   the service phase's four classes, 8 client threads x
+                   4096 requests in all: vs sim, every future resolved, no
+                   error, reject, degraded batch or trip, each class mapped
+                   once cluster-wide, every worker on cgra_exec-cuda with
+                   launches (checked); p50/p99, samples/s, routing, and per
+                   worker: mean batch, launches, start-up, pinned and device
+                   memory
+  cluster_heal     the same load with worker 0 killed (os._exit) at its
+                   65th request: every future resolved, retries >= 1, one
+                   death and one restart, the respawned worker answering
+                   4 requests a class with no mapping and no nvcc run, vs
+                   sim (checked); death to rejoin
+  dse              explore(gemm) over HyCUBE 4x4, N2N 4x4 and PACE x the
+                   built-in strategies x seeds 0, 1 with 4 forked mappers
+                   after CUDA is initialised: each unique key mapped once, a
+                   second sweep all cache hits, every Pareto point validated
+                   on cuda against interp (checked); wall
   flash_attention  per case (bf16: the tensor-core form; f32: the CUDA-core
                    form): the kernel vs its plain version (per element
                    2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want| in bf16),
@@ -92,7 +116,9 @@ Each phase prints one JSON line:
                    tok/s, ms per decode step, decode path vs prefill
                    (checked in f32)
   lm_breakdown     per model, prefill and decode under torch.profiler
-  kernels          the summary line of every kernel
+  kernels          the summary line of every kernel (cgra_exec's launches
+                   by path: run_batch, stream, service, breaker, sharded,
+                   cluster and cluster_heal from the workers' engines, dse)
 
 The raw ``nvidia-smi`` line comes next, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -905,6 +931,342 @@ def breaker_phase(rng, compiled) -> int:
     return launched[-1]
 
 
+#: the sharded phase: gemm on HyCUBE 4x4 and on PACE 8x8 through
+#: ``cuda_sharded``, a batch of one block and a ragged batch one row past it
+SHARDED_B = (BATCH, BATCH + 1)
+#: the cluster phases: two spawned workers (one card each; on a one-card
+#: machine both share it), the service phase's four classes, 8 client
+#: threads submitting 4096 single-vector requests in all; cluster_heal
+#: kills worker 0 at its 65th request, then sends HEAL_PROBES requests a
+#: class, one at a time, to the respawned worker (under the re-armed kill)
+CLUSTER_WORKERS, CLUSTER_REQUESTS, CLUSTER_CLIENTS = 2, 4096, 8
+HEAL_AFTER, HEAL_PROBES = 64, 4
+#: the dse phase: gemm over 3 fabrics x the built-in strategies x 2 seeds,
+#: mapped by 4 forked workers after this process has initialised CUDA
+DSE_SPACE = {"fabric": [("hycube", {"rows": 4, "cols": 4}),
+                        ("n2n", {"rows": 4, "cols": 4}), ("pace", {})],
+             "seed": [0, 1]}
+DSE_WORKERS, DSE_VECTORS = 4, 256
+
+
+def sharded_phase(rng, compiled) -> int:
+    """``run_batch`` of BATCH and BATCH + 1 vectors on ``cuda_sharded``
+    (every card of the process, one block plan), gemm on HyCUBE and PACE:
+    bit-exact against ``sim``, the engine's name and device count, one
+    launch a device a block, at most one trace a bucket.  Returns the
+    launches."""
+    import torch
+
+    from repro_torch import ual
+    from repro_torch.kernels.cgra_exec import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    lanes = ual.get_backend("cuda_sharded").lanes
+    n_dev = torch.cuda.device_count()
+    launches = 0
+    for kname, fab in STREAM_PAIRS:
+        program, exe = compiled[(kname, fab)]
+        engine = ual.default_engine().sharded_engine_for(
+            exe.lowered, lanes=lanes, mesh=make_host_mesh())
+        for B in SHARDED_B:
+            mems = [program.random_inputs(rng) for _ in range(B)]
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            outs = exe.run_batch(mems, backend="cuda_sharded")
+            wall = time.perf_counter() - t0
+            n = ops.launches()
+            info = dict(exe.last_info)
+            diff = words_differ(outs, exe.run_batch(mems, backend="sim"),
+                                program)
+            check(diff == 0, f"{kname}@{fab}: run_batch({B}) on cuda_sharded "
+                             f"!= sim in {diff} words")
+            check(info["engine"] == "cgra_exec-cuda-sharded"
+                  and info["n_devices"] == n_dev,
+                  f"{kname}@{fab}: engine {info['engine']} over "
+                  f"{info.get('n_devices')} devices, {n_dev} cards")
+            blocks = -(-B // (n_dev * lanes))
+            check(n == blocks * n_dev, f"{kname}@{fab}: run_batch({B}) made "
+                                       f"{n} launches, want {blocks * n_dev}")
+            stats = engine.stats()
+            check(stats["traces"] <= len(stats["buckets"]),
+                  f"{kname}@{fab}: {stats['traces']} traces > buckets")
+            emit("sharded", kernel=kname, fabric=exe.target.fabric.name,
+                 B=B, engine=info["engine"], n_devices=info["n_devices"],
+                 launches=n, buckets=info["buckets"],
+                 traces=stats["traces"], n_buckets=len(stats["buckets"]),
+                 agrees_with_sim=True, wall_s=wall,
+                 throughput_sps=B / wall)
+            launches += n
+    return launches
+
+
+def cluster_drive(cs, classes, mems) -> tuple:
+    """CLUSTER_CLIENTS threads submit ``mems`` round-robin over the
+    classes; returns (futures, outputs, wall seconds)."""
+    import threading
+
+    futs = [None] * len(mems)
+
+    def client(c: int) -> None:
+        for i in range(c, len(mems), CLUSTER_CLIENTS):
+            program, exe = classes[i % len(classes)]
+            futs[i] = cs.submit(program, exe.target, mems[i],
+                                tenant=f"{program.name}@"
+                                       f"{exe.target.fabric.name}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLUSTER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    outs = [f.result(timeout=600) for f in futs]
+    return futs, outs, time.perf_counter() - t0
+
+
+def cluster_diff(classes, mems, outs) -> int:
+    """Words of ``outs`` that differ from ``sim`` on the same requests."""
+    diff = 0
+    for k, (program, exe) in enumerate(classes):
+        idx = range(k, len(mems), len(classes))
+        diff += words_differ([outs[i] for i in idx], exe.run_batch(
+            [mems[i] for i in idx], backend="sim"), program)
+    return diff
+
+
+def cluster_workers(stats, procs, phase: str) -> tuple:
+    """Each worker's line (engine, launches, batches, memory, start-up) and
+    the launches of all of them, summed from their engines' bucket calls
+    (the launches happen in the workers' processes).  Every worker ran
+    ``cgra_exec`` on the card and nothing degraded to ``sim``."""
+    per, launches = {}, 0
+    for i, snap in sorted(stats["per_worker"].items()):
+        engines = list(snap["engine"]["per_engine"].values())
+        calls = sum(sum(e["bucket_calls"].values()) for e in engines)
+        names = sorted({e["engine"] for e in engines})
+        check(names == ["cgra_exec-cuda"] and calls > 0,
+              f"{phase}: worker {i} ran engines {names}, {calls} launches")
+        brk = snap["breaker"]
+        check(brk["degraded_batches_total"] == 0 and brk["trips_total"] == 0,
+              f"{phase}: worker {i} degraded {brk['degraded_batches_total']} "
+              f"batches, {brk['trips_total']} trips")
+        info = procs.get(i, {})
+        per[i] = {"completed": snap["completed"],
+                  "mean_batch": snap["mean_batch"],
+                  "batches": snap["batches"], "launches": calls,
+                  "wrapper_launches": info.get("cgra_exec_launches"),
+                  "mapping_stores": snap["cache"]["mapping"]["stores"],
+                  "mapping_disk_hits": snap["cache"]["mapping"]["disk_hits"],
+                  "startup_s": info.get("startup_s"),
+                  "nvcc_builds": info.get("nvcc_builds"),
+                  "cuda_visible_devices": info.get("cuda_visible_devices"),
+                  "pinned_bytes": info.get("pinned_bytes"),
+                  "device_max_reserved_bytes":
+                      info.get("device_max_reserved_bytes"),
+                  "device_max_allocated_bytes":
+                      info.get("device_max_allocated_bytes")}
+        launches += calls
+    return per, launches
+
+
+def cluster_phase(rng, compiled) -> int:
+    """``ClusterService(workers=2)`` on ``cuda`` with a fresh cache
+    directory, serving the service phase's four classes: 8 clients x
+    CLUSTER_REQUESTS requests in all.  Outputs bit-equal to ``sim``, every
+    future resolved, no error, reject, degraded batch or trip, each class
+    mapped once cluster-wide, every worker on ``cgra_exec-cuda``.  Returns
+    the workers' launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch import ual
+
+    classes = [compiled[key] for key in SERVICE_CLASSES]
+    mems = [classes[i % len(classes)][0].random_inputs(rng)
+            for i in range(CLUSTER_REQUESTS)]
+    cache_dir = tempfile.mkdtemp(prefix="cluster_cache_")
+    try:
+        t0 = time.perf_counter()
+        with ual.ClusterService(workers=CLUSTER_WORKERS, max_batch=512,
+                                max_wait_ms=2, max_queue=CLUSTER_REQUESTS,
+                                cache_dir=cache_dir) as cs:
+            ready_s = time.perf_counter() - t0
+            _, outs, wall = cluster_drive(cs, classes, mems)
+            stats = cs.stats(timeout=120)
+            procs = cs.worker_info()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    diff = cluster_diff(classes, mems, outs)
+    check(diff == 0, f"cluster: outputs != sim in {diff} words")
+    check(stats["completed"] == CLUSTER_REQUESTS and stats["errors"] == 0
+          and stats["rejected"] == 0,
+          f"cluster: {stats['completed']} of {CLUSTER_REQUESTS} completed, "
+          f"{stats['errors']} errors, rejects {stats['rejects']}")
+    check(sorted(stats["per_worker"]) == list(range(CLUSTER_WORKERS)),
+          f"cluster: workers answering {sorted(stats['per_worker'])}")
+    per, launches = cluster_workers(stats, procs, "cluster")
+    stores = sum(w["mapping_stores"] for w in per.values())
+    check(stores == len(SERVICE_CLASSES),
+          f"cluster: {stores} mappings cluster-wide for "
+          f"{len(SERVICE_CLASSES)} classes")
+    emit("cluster", workers=CLUSTER_WORKERS, backend="cuda",
+         classes=[f"{k}@{f}" for k, f in SERVICE_CLASSES],
+         requests=CLUSTER_REQUESTS, clients=CLUSTER_CLIENTS, max_batch=512,
+         max_wait_ms=2, agrees_with_sim=True, ready_s=ready_s, wall_s=wall,
+         samples_per_s=CLUSTER_REQUESTS / wall,
+         stats_samples_per_s=stats["samples_per_s"],
+         p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
+         completed=stats["completed"], errors=stats["errors"],
+         rejected=stats["rejected"], routing=stats["routing"],
+         mappings=stores, launches=launches, per_worker=per)
+    return launches
+
+
+def cluster_heal_phase(rng, compiled) -> int:
+    """The same load with a fault plan that kills worker 0 (``os._exit``,
+    CUDA context and all) at its 65th request: every future resolves
+    bit-equal to ``sim``, at least one request retried, one death and one
+    restart; then HEAL_PROBES requests a class, one at a time, go to the
+    respawned worker, which maps nothing, builds nothing and answers
+    bit-equal to ``sim``.  Returns the launches of the surviving
+    processes."""
+    import shutil
+    import tempfile
+
+    from repro_torch import ual
+
+    classes = [compiled[key] for key in SERVICE_CLASSES]
+    mems = [classes[i % len(classes)][0].random_inputs(rng)
+            for i in range(CLUSTER_REQUESTS)]
+    plan = ual.FaultPlan([ual.FaultSpec("kill_worker", worker=0,
+                                        after=HEAL_AFTER)])
+    cache_dir = tempfile.mkdtemp(prefix="cluster_heal_cache_")
+    try:
+        with ual.ClusterService(
+                workers=CLUSTER_WORKERS, max_batch=512, max_wait_ms=2,
+                max_queue=CLUSTER_REQUESTS, cache_dir=cache_dir,
+                worker_env=plan.to_env(),
+                restart_policy=ual.RestartPolicy(
+                    max_restarts=1, backoff_base_s=0.1)) as cs:
+            futs, outs, wall = cluster_drive(cs, classes, mems)
+            deadline = time.perf_counter() + 300
+            while True:
+                sup = cs.stats(timeout=60)["supervision"]["workers"][0]
+                if sup["restarts"] >= 1 and sup["alive"]:
+                    break
+                check(time.perf_counter() < deadline,
+                      f"cluster_heal: worker 0 never rejoined: {sup}")
+                time.sleep(0.2)
+            probes = []
+            for program, exe in classes:
+                for _ in range(HEAL_PROBES):
+                    mem = program.random_inputs(rng)
+                    resp = cs.submit(program, exe.target, mem)
+                    out = resp.result(timeout=600)
+                    probes.append((program, exe, mem, out,
+                                   resp.info.get("worker")))
+            stats = cs.stats(timeout=120)
+            procs = cs.worker_info()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    diff = cluster_diff(classes, mems, outs)
+    for program, exe, mem, out, _ in probes:
+        diff += words_differ([out], exe.run_batch([mem], backend="sim"),
+                             program)
+    check(diff == 0, f"cluster_heal: outputs != sim in {diff} words")
+    retried = sum(1 for f in futs if f.info.get("retries", 0) >= 1)
+    sup = stats["supervision"]
+    w0 = sup["workers"][0]
+    check(retried >= 1 and sup["retries_total"] >= 1,
+          f"cluster_heal: {retried} requests retried")
+    check(sup["restarts_total"] == 1 and sup["deaths_total"] == 1,
+          f"cluster_heal: {sup['deaths_total']} deaths, "
+          f"{sup['restarts_total']} restarts")
+    check(all(w == 0 for *_, w in probes),
+          f"cluster_heal: probes answered by workers "
+          f"{sorted({w for *_, w in probes})}, not the respawned 0")
+    per, launches = cluster_workers(stats, procs, "cluster_heal")
+    check(per[0]["mapping_stores"] == 0
+          and stats["per_worker"][0]["cache"]["lowered"]["stores"] == 0
+          and per[0]["mapping_disk_hits"] >= 1,
+          f"cluster_heal: the respawned worker mapped "
+          f"{per[0]['mapping_stores']} classes, "
+          f"{per[0]['mapping_disk_hits']} disk hits")
+    check(per[0]["nvcc_builds"] == 0,
+          f"cluster_heal: the respawned worker ran nvcc "
+          f"{per[0]['nvcc_builds']} times")
+    check(stats["errors"] == 0, f"cluster_heal: {stats['errors']} errors")
+    emit("cluster_heal", workers=CLUSTER_WORKERS, backend="cuda",
+         requests=CLUSTER_REQUESTS, kill_after=HEAL_AFTER,
+         probes=len(probes), agrees_with_sim=True, wall_s=wall,
+         samples_per_s=CLUSTER_REQUESTS / wall, retried_requests=retried,
+         retries_total=sup["retries_total"], deaths=sup["deaths_total"],
+         restarts=sup["restarts_total"],
+         death_to_rejoin_s=w0["last_recovery_s"],
+         p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
+         routing=stats["routing"], launches=launches, per_worker=per)
+    return launches
+
+
+def dse_phase(rng) -> int:
+    """``explore`` of gemm over DSE_SPACE (the built-in strategies added)
+    with DSE_WORKERS forked mappers, run after this process has
+    initialised CUDA: every unique key mapped once, a second sweep all
+    cache hits, every Pareto point's executable ``validate``d bit-exact on
+    ``cuda`` against ``interp``.  Returns the launches of the validations."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import ual
+    from repro_torch.kernels.cgra_exec import ops
+
+    check(torch.cuda.is_initialized(), "dse: CUDA is not initialised yet")
+    program = ual.Program.from_kernel("gemm")
+    space = dict(DSE_SPACE, strategy=ual.list_strategies())
+    cache_dir = tempfile.mkdtemp(prefix="dse_cache_")
+    try:
+        cache = ual.MappingCache(disk_dir=cache_dir)
+        t0 = time.perf_counter()
+        report = ual.explore(program, space, workers=DSE_WORKERS,
+                             cache=cache)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = ual.explore(program, space, workers=DSE_WORKERS, cache=cache)
+        warm_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    keys = {p.executable.target.digest for p in report.points}
+    check(all(p.success for p in report.points),
+          f"dse: {sum(not p.success for p in report.points)} points failed "
+          f"to map")
+    check(report.n_mapped == len(keys) == cache.stats.stores,
+          f"dse: {report.n_mapped} mappings for {len(keys)} unique keys "
+          f"({cache.stats.stores} stored)")
+    check(again.n_mapped == 0 and again.n_warm == len(again.points),
+          f"dse: the warm sweep mapped {again.n_mapped}, "
+          f"{again.n_warm} hits of {len(again.points)}")
+    ops.reset_launches()
+    for p in report.pareto:
+        rep = p.executable.validate(backends=("cuda",),
+                                    n_vectors=DSE_VECTORS)
+        check(rep.passed, f"dse: {p.fabric}/{p.strategy}/{p.knobs} failed "
+                          f"validate on cuda: {rep.mismatches} words")
+    launches = ops.launches()
+    check(launches >= len(report.pareto),
+          f"dse: {launches} launches for {len(report.pareto)} validations")
+    emit("dse", kernel="gemm", workers=DSE_WORKERS,
+         points=len(report.points), unique_keys=len(keys),
+         n_mapped=report.n_mapped, warm_hits=again.n_warm, wall_s=wall,
+         warm_wall_s=warm_wall, pareto=[p.row() for p in report.pareto],
+         rows=[p.row() for p in report.points],
+         validated_on_cuda=len(report.pareto), n_vectors=DSE_VECTORS,
+         launches=launches)
+    return launches
+
+
 def attention_bound(B, Sq, Skv, H, KV, D, dtype, causal, window):
     """Least time for one attention call: 4 * D flops per (query, key)
     pair the mask keeps, over the peak rate of ``dtype``, against q, k, v
@@ -1657,7 +2019,11 @@ def main(argv=None) -> int:
         "stream": sum(stream_phases(dev, rng, compiled)
                       for _ in range(args.stream_repeats)),
         "service": service_phase(rng, compiled),
-        "breaker": breaker_phase(rng, compiled)}
+        "breaker": breaker_phase(rng, compiled),
+        "sharded": sharded_phase(rng, compiled),
+        "cluster": cluster_phase(rng, compiled),
+        "cluster_heal": cluster_heal_phase(rng, compiled),
+        "dse": dse_phase(rng)}
     flash = flash_phases(dev, sass["flash_attention"])
     ssd = ssd_phases(dev, sass["mamba2_ssd"])
     wkv = wkv_phases(dev, sass["rwkv6"])

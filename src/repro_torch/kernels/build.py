@@ -35,6 +35,10 @@ from typing import List, Mapping, Sequence
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: ``nvcc`` runs this process has made (a process that found every library
+#: built makes none: the cluster's respawned workers are checked by it)
+compiles = 0
+
 
 def build_dir() -> Path:
     """``artifacts/repro_torch/build`` in a source checkout, else the user
@@ -80,6 +84,7 @@ def build(name: str, sources: Sequence[Path],
     """Compile ``sources`` into ``lib<name>_<hash>.so`` unless it exists;
     returns its path.  Safe against concurrent builders (file lock, atomic
     publish); raises with nvcc's output when the build fails."""
+    global compiles
     out = library_path(name, sources, defines)
     if out.exists():
         return out
@@ -88,6 +93,7 @@ def build(name: str, sources: Sequence[Path],
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():                  # another process built it meanwhile
             return out
+        compiles += 1
         tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
         cmd = [find_nvcc(), *NVCC_FLAGS, *_define_flags(defines),
                "-o", str(tmp),

@@ -39,14 +39,25 @@ Vocabulary, as in the reference:
     (``Router``),
   * ``FaultPlan``/``FaultSpec`` — deterministic fault injection
     (``repro_torch.ual.faults``; ``InjectedFault`` is what an
-    ``exec_fault`` raises).
+    ``exec_fault`` raises),
+  * ``ClusterService`` — N spawned worker processes behind one front-end
+    (``repro_torch.ual.cluster``), one card each, sharing the on-disk
+    artifact cache; a dead worker's in-flight requests retry on live
+    workers and the worker respawns warm under a ``RestartPolicy``,
+  * ``ShardedKernelEngine`` — one block plan split over every device of
+    the host mesh (``repro_torch.launch.mesh``), behind the sharded
+    backends,
+  * ``compile_many``/``explore`` — grid compilation over a forked process
+    pool with cache-aware dedup, and the Pareto DSE front-end on top of it
+    (``DesignPoint``, ``ExploreReport``; GOPS/W from ``core.energy``),
+  * ``python -m repro_torch.ual.check`` — the verifier CLI.
 
 Backends: ``interp`` (the DFG oracle), ``sim`` (the vectorized numpy
 simulator), ``cuda`` (the hand-written kernel on the card; raises with no
-CUDA device) and ``torch`` (the kernel's plain PyTorch version on the CPU).
-Not ported yet: ``ClusterService`` and ``RestartPolicy`` (worker
-processes and their supervision), the sharded engine, ``explore``,
-``compile_many``, ``DesignPoint``, ``ExploreReport`` and ``check``.
+CUDA device), ``torch`` (the kernel's plain PyTorch version on the CPU),
+``cuda_sharded`` (the kernel on every card of the process, one block plan)
+and ``torch_sharded`` (its CPU twin over ``launch.mesh.forced_host_devices``
+CPU devices).
 """
 from repro_torch.analysis.verifier import (CheckReport, Diagnostic,
                                            VerifyError, verify)
@@ -58,13 +69,15 @@ from repro_torch.ual.backends import (Backend, get_backend, list_backends,
 from repro_torch.ual.cache import (CACHE_VERSION, CacheStats, MappingCache,
                                    default_cache, default_cache_dir,
                                    set_default_cache)
-from repro_torch.ual.cluster import Router
+from repro_torch.ual.cluster import ClusterService, RestartPolicy, Router
 from repro_torch.ual.compiler import compile
 from repro_torch.ual.faults import FaultPlan, FaultSpec, InjectedFault
 from repro_torch.ual.engine import (CompiledKernelCache, KernelEngine,
-                                    bucket_ladder, default_engine,
-                                    set_default_engine)
+                                    ShardedKernelEngine, bucket_ladder,
+                                    default_engine, set_default_engine)
 from repro_torch.ual.executable import CompileInfo, Executable, PassRecord
+from repro_torch.ual.explore import (DesignPoint, ExploreReport,
+                                     compile_many, explore)
 from repro_torch.ual.pipeline import (CompileContext, CompilePass, Pipeline,
                                       VerifyPass, default_pipeline)
 from repro_torch.ual.program import Program
@@ -76,16 +89,18 @@ from repro_torch.ual.target import (FABRICS, Target, list_fabrics,
 
 __all__ = [
     "Backend", "CACHE_VERSION", "CacheStats", "CheckReport",
-    "CircuitBreaker", "CompileContext", "CompileInfo",
-    "CompiledKernelCache", "CompilePass", "Diagnostic", "Executable",
-    "FABRICS", "FaultPlan", "FaultSpec", "InjectedFault", "KernelEngine",
-    "LinkedConfig", "MapperStrategy", "MappingCache", "PassRecord",
-    "Pipeline", "Program", "Response", "Router", "Service",
-    "ServiceRejected", "StreamResponse", "Target", "VerifyError",
-    "VerifyPass",
-    "bucket_ladder", "compile", "default_cache", "default_cache_dir",
-    "default_engine", "default_pipeline", "get_backend", "link_config",
-    "list_backends", "list_fabrics", "list_strategies", "register_backend",
-    "register_fabric", "register_strategy", "set_default_cache",
-    "set_default_engine", "verify",
+    "CircuitBreaker", "ClusterService", "CompileContext", "CompileInfo",
+    "CompiledKernelCache", "CompilePass", "DesignPoint", "Diagnostic",
+    "Executable", "ExploreReport", "FABRICS", "FaultPlan", "FaultSpec",
+    "InjectedFault", "KernelEngine", "LinkedConfig", "MapperStrategy",
+    "MappingCache", "PassRecord", "Pipeline", "Program", "Response",
+    "RestartPolicy", "Router", "Service", "ServiceRejected",
+    "ShardedKernelEngine", "StreamResponse", "Target",
+    "VerifyError", "VerifyPass",
+    "bucket_ladder", "compile", "compile_many", "default_cache",
+    "default_cache_dir", "default_engine", "default_pipeline", "explore",
+    "get_backend", "link_config", "list_backends", "list_fabrics",
+    "list_strategies", "register_backend", "register_fabric",
+    "register_strategy", "set_default_cache", "set_default_engine",
+    "verify",
 ]

@@ -1,7 +1,7 @@
 """Pluggable execution backends for the unified abstraction layer.
 
 A backend turns ``(Program, MapResult, named arrays)`` into named output
-arrays.  Four ship with the package:
+arrays.  Six ship with the package:
 
   * ``interp``  — the DFG interpreter oracle (no mapping required; the
     reference semantics every other backend must match bit-exactly),
@@ -13,7 +13,14 @@ arrays.  Four ship with the package:
     batch-bucket padding, ``n_iters`` a kernel argument.  It raises on a
     machine with no CUDA device; it never falls back,
   * ``torch``   — the kernel's plain PyTorch version through the same
-    engine on the CPU, for callers that name it.
+    engine on the CPU, for callers that name it,
+  * ``cuda_sharded`` — every sweep split over ALL the cards of this
+    process (``launch.mesh.make_host_mesh()``) through one
+    ``ShardedKernelEngine``: a device per row range, per-device bucket
+    padding; it raises with no card,
+  * ``torch_sharded`` — its CPU twin, over ``make_host_mesh("cpu")``: as
+    many repeated CPU devices as ``launch.mesh.forced_host_devices`` set
+    (default 1).
 
 ``sim``, ``cuda`` and ``torch`` consume the shared **lowered artifact**
 (``core.lowering.LinkedConfig``) produced once by the compile pipeline's
@@ -177,15 +184,24 @@ class EngineBackend(Backend):
 
     A per-call ``device=`` keyword (``supports_device``) pins the sweep to
     one device of the backend's type — the replica router's placement
-    path; the engine cache keys engines on the device."""
+    path; the engine cache keys engines on the device.
+
+    With ``sharded=True`` (``cuda_sharded``, ``torch_sharded``) every sweep
+    runs through one ``ShardedKernelEngine`` over the host mesh of the
+    backend's device type, read at each call
+    (``launch.mesh.make_host_mesh``): a sharded sweep spans every device,
+    so pinning it to one is a contradiction and ``supports_device`` is
+    False."""
 
     consumes_lowered = True
     accepts_flats = True
     supports_device = True
 
-    def __init__(self, device: str, lanes: int = 128):
+    def __init__(self, device: str, lanes: int = 128, sharded: bool = False):
         self.device = device
         self.lanes = lanes
+        self.sharded = sharded
+        self.supports_device = not sharded
 
     @property
     def engine(self):
@@ -194,6 +210,10 @@ class EngineBackend(Backend):
         return default_engine()
 
     def _engine_for(self, linked, device=None):
+        if self.sharded:
+            from repro_torch.launch.mesh import make_host_mesh
+            return self.engine.sharded_engine_for(
+                linked, lanes=self.lanes, mesh=make_host_mesh(self.device))
         return self.engine.engine_for(linked, lanes=self.lanes,
                                       device=device or self.device)
 
@@ -224,12 +244,12 @@ class EngineBackend(Backend):
         straight into its staging buffer; drained chunks are unflattened
         straight out of theirs.  ``chunk``
         defaults to, and is capped at, the engine's top bucket (4096 on
-        ``cuda``), so a stream adds no shape ``execute_batch`` would not
-        launch; the summary carries the engine's measured
-        ``overlap_frac``."""
+        ``cuda``; times the devices, sharded), so a stream adds no shape
+        ``execute_batch`` would not launch; the summary carries the
+        engine's measured ``overlap_frac``."""
         from repro_torch.ual.engine import Flattened
         eng = self._engine_for(_ensure_lowered(result, lowered), device)
-        top = eng.buckets[-1]
+        top = eng._capacity()
         step = max(1, min(int(chunk), top)) if chunk else top
 
         def blocks():
@@ -305,3 +325,6 @@ register_backend("interp", InterpBackend())
 register_backend("sim", SimBackend())
 register_backend("cuda", EngineBackend("cuda", lanes=CUDA_LANES))
 register_backend("torch", EngineBackend("cpu"))
+register_backend("cuda_sharded", EngineBackend("cuda", lanes=CUDA_LANES,
+                                               sharded=True))
+register_backend("torch_sharded", EngineBackend("cpu", sharded=True))

@@ -40,7 +40,13 @@ and streaming activity (``streams``/``stream_chunks``);
 surfaces this in ``Service.stats()["engine"]``, and ``Executable.warmup()``
 reports it in ``last_info``).
 
-Not ported yet: the multi-device sharded engine.
+``ShardedKernelEngine`` is the multi-device engine behind the
+``cuda_sharded`` and ``torch_sharded`` backends: one ``KernelEngine`` per
+device of a host mesh (``launch.mesh.make_host_mesh``), each with the
+tables, pinned buffers and streams of its own.  A block of ``chunk`` samples
+runs at ``n_devices x bucket_for(ceil(chunk / n_devices))`` rows, the
+reference's block plan: each device takes its row range, padded with zero
+rows to the per-device bucket, and the results are gathered in order.
 """
 from __future__ import annotations
 
@@ -200,7 +206,7 @@ class KernelEngine:
         self.fingerprint = lowered_fingerprint(linked)
         self.name = f"cgra_exec-{self.device.type}"
         # the CM image goes to the device once per engine
-        self.tables = ops.upload_tables(linked, self.device)
+        self.tables = self._put_tables(linked)
         # _trace_lock serializes first launches of a shape (so concurrent
         # callers count exactly one trace per bucket); _stats_lock guards
         # the counters, the warm-shape set and the staging pool
@@ -210,6 +216,7 @@ class KernelEngine:
         self.padded_samples = 0
         self.streams = 0             # run_stream invocations completed
         self.stream_chunks = 0       # chunks drained across all streams
+        self.pinned_bytes = 0        # pinned staging allocated (a pool: its peak)
         self.bucket_calls: Dict[int, int] = {}
         self._warm: set = set()              # (M, bucket) already launched
         self._free: Dict[Tuple[int, int], List[_Slot]] = {}
@@ -217,12 +224,28 @@ class KernelEngine:
         self._trace_lock = threading.Lock()
         self._stats_lock = threading.Lock()
 
+    def _put_tables(self, linked: LinkedConfig):
+        return ops.upload_tables(linked, self.device)
+
+    def _info_extra(self) -> Dict[str, object]:
+        """Engine-flavour extras merged into per-call info and stats."""
+        return {}
+
     def bucket_for(self, b: int) -> int:
         """Smallest ladder bucket >= b (callers chunk at the largest)."""
         for bk in self.buckets:
             if bk >= b:
                 return bk
         return self.buckets[-1]
+
+    # -- the block plan (overridden by the sharded engine) --------------------
+    def _capacity(self) -> int:
+        """Rows one block can carry; ``run`` chunks bigger batches."""
+        return self.buckets[-1]
+
+    def _block_rows(self, chunk: int) -> int:
+        """Padded row count the block for ``chunk`` samples runs at."""
+        return self.bucket_for(chunk)
 
     # -- staging (CUDA) --------------------------------------------------------
     def _acquire(self, M: int, rows: int) -> _Slot:
@@ -232,6 +255,7 @@ class KernelEngine:
             free = self._free.get((M, rows))
             if free:
                 return free.pop()
+            self.pinned_bytes += 4 * rows * M
         return _Slot(rows, M)
 
     def _release(self, slot: _Slot) -> None:
@@ -345,12 +369,14 @@ class KernelEngine:
         return out, waited
 
     def _submit(self, block, n_iters: int,
-                before: Optional[_InFlight] = None) -> _InFlight:
-        """Dispatch one block of at most the top bucket's rows (finishing
-        ``before``'s download beside its upload).  The first launch of an
-        ``(M, bucket)`` shape runs to its end under the trace lock and
-        counts as this engine's one trace of the shape."""
-        rows = self.bucket_for(block.shape[0])
+                before: Optional[_InFlight] = None,
+                rows: Optional[int] = None) -> _InFlight:
+        """Dispatch one block of at most ``_capacity()`` rows, padded to
+        ``rows`` (default ``_block_rows``), finishing ``before``'s download
+        beside its upload.  The first launch of an ``(M, bucket)`` shape
+        runs to its end under the trace lock and counts as this engine's
+        one trace of the shape."""
+        rows = rows or self._block_rows(block.shape[0])
         key = (block.shape[1], rows)
         with self._stats_lock:
             warm = key in self._warm
@@ -427,7 +453,7 @@ class KernelEngine:
                 raise ValueError(f"expected (B, M) images, got "
                                  f"{flats.shape}")
         B, M = flats.shape
-        top = self.buckets[-1]
+        top = self._capacity()
         out = [] if consume is not None else np.empty((B, M), np.int32)
         used: List[int] = []
         cold_blocks = 0
@@ -448,6 +474,7 @@ class KernelEngine:
             "padded": sum(used) - B,
             "traced": cold_blocks,
             "traces_total": traces_total,
+            **self._info_extra(),
         }
 
     # -- streaming ------------------------------------------------------------
@@ -484,7 +511,7 @@ class KernelEngine:
         """
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
-        top = self.buckets[-1]
+        top = self._capacity()
         step = top if chunk is None else max(1, min(int(chunk), top))
 
         def blocks() -> Iterator:
@@ -542,6 +569,7 @@ class KernelEngine:
             "overlap_frac": (round(max(0.0, 1.0 - wait_s / wall), 4)
                              if wall > 0 and used else 0.0),
             "throughput_sps": n_samples / wall if wall > 0 else 0.0,
+            **self._info_extra(),
         }
 
     def warmup(self, M: int,
@@ -551,7 +579,7 @@ class KernelEngine:
         bucket covers every trip count.  Sizes off the ladder snap UP to
         the bucket that will execute them, so re-warming is a no-op.
         Returns this engine's stats."""
-        want = sorted({self.bucket_for(b) for b in
+        want = sorted({self._block_rows(min(b, self._capacity())) for b in
                        bucket_ladder(self.lanes, buckets or self.buckets)})
         for rows in want:
             with self._stats_lock:
@@ -570,6 +598,7 @@ class KernelEngine:
                 "padded_samples": self.padded_samples,
                 "streams": self.streams,
                 "stream_chunks": self.stream_chunks,
+                "pinned_bytes": self.pinned_bytes,
                 "warm_shapes": sorted(self._warm),
             }
         calls = sum(bucket_calls.values())
@@ -579,16 +608,137 @@ class KernelEngine:
             "bucket_calls": bucket_calls,
             "hit_ratio": round(hits / calls, 4) if calls else None,
             "buckets": self.buckets,
+            "engine": self.name,
             "device": str(self.device),
             **snap,
+            **self._info_extra(),
         }
+
+
+class _ShardedFlight:
+    """One dispatched block of the sharded engine: ``b`` live rows padded
+    to ``rows`` (``n_devices`` x the per-device bucket), one ``_InFlight``
+    a device, each holding its own row range."""
+
+    __slots__ = ("b", "rows", "M", "cold", "parts", "t_up", "t_disp")
+
+    def __init__(self, b: int, rows: int, M: int, cold: bool,
+                 parts: List[_InFlight]) -> None:
+        self.b, self.rows, self.M, self.cold = b, rows, M, cold
+        self.parts = parts
+        self.t_up = self.t_disp = 0.0
+
+
+class ShardedKernelEngine(KernelEngine):
+    """The multi-device engine: one block plan over every device of a
+    1-D host mesh (default ``launch.mesh.make_host_mesh()``: every card).
+
+    Each device has an engine of its own (``shards``): the packed tables
+    uploaded once to it, its own pinned buffers and its own three streams.
+    A block of ``chunk`` samples runs at ``n_devices x
+    bucket_for(ceil(chunk / n_devices))`` rows: device ``d`` takes samples
+    ``d*q .. (d+1)*q`` (``q = ceil(chunk / n_devices)``) padded with zero
+    rows to the per-device bucket, launched on its own streams, and the
+    results are gathered in device order with the padding sliced off.  The
+    warm-shape set and the trace count stay at most one per bucket, as in
+    the single-device engine, and the outputs are bit-equal to it.
+
+    The mesh is a list of ``torch.device``s of one type: CUDA cards, or
+    repeated CPU devices (``make_host_mesh("cpu", n)``) for the plain
+    version.
+    """
+
+    def __init__(self, linked: LinkedConfig, *, lanes: int = 128,
+                 buckets: Optional[Sequence[int]] = None,
+                 mesh: Optional[Sequence] = None) -> None:
+        if mesh is None:
+            from repro_torch.launch.mesh import make_host_mesh
+            mesh = make_host_mesh()
+        devices = [torch.device(d) for d in mesh]
+        if not devices or len({d.type for d in devices}) != 1:
+            raise ValueError(f"ShardedKernelEngine needs a non-empty 1-D "
+                             f"mesh of one device type, got {mesh!r}")
+        self.mesh = devices
+        self.n_devices = len(devices)
+        self.shards = [KernelEngine(linked, lanes=lanes, buckets=buckets,
+                                    device=d) for d in devices]
+        super().__init__(linked, lanes=lanes, buckets=buckets,
+                         device=devices[0])
+        self.name += "-sharded"
+
+    def _put_tables(self, linked: LinkedConfig):
+        """The CM image once per device: each shard's own upload."""
+        return tuple(shard.tables for shard in self.shards)
+
+    def _info_extra(self) -> Dict[str, object]:
+        return {"n_devices": self.n_devices}
+
+    # -- the sharded block plan -----------------------------------------------
+    def _capacity(self) -> int:
+        return self.n_devices * self.buckets[-1]
+
+    def _block_rows(self, chunk: int) -> int:
+        per_device = -(-chunk // self.n_devices)      # ceil
+        return self.n_devices * self.bucket_for(per_device)
+
+    def _submit(self, block, n_iters: int,
+                before: Optional[_ShardedFlight] = None,
+                rows: Optional[int] = None) -> _ShardedFlight:
+        """Split one block into per-device row ranges and dispatch each on
+        its device (finishing ``before``'s part on the same device beside
+        its upload)."""
+        b, M = block.shape
+        q = -(-b // self.n_devices)
+        per = (rows or self._block_rows(b)) // self.n_devices
+        prev = before.parts if before is not None else [None] * len(
+            self.shards)
+        parts = [shard._submit(block[min(d * q, b):min((d + 1) * q, b)],
+                               n_iters, before=p, rows=per)
+                 for d, (shard, p) in enumerate(zip(self.shards, prev))]
+        key = (M, self.n_devices * per)
+        with self._stats_lock:
+            cold = key not in self._warm
+            if cold:
+                self.traces += 1
+                self._warm.add(key)
+        return _ShardedFlight(b, self.n_devices * per, M, cold, parts)
+
+    def _download(self, fl: _ShardedFlight) -> None:
+        for shard, part in zip(self.shards, fl.parts):
+            shard._download(part)
+
+    def _drain(self, fl: _ShardedFlight, into: Optional[np.ndarray] = None,
+               consume: Optional[Callable[[np.ndarray], object]] = None
+               ) -> Tuple[object, float]:
+        """Gather the devices' rows in order (into ``into`` when given),
+        then ``consume`` them when given.  One device hands its staging
+        buffer's rows straight to ``consume``."""
+        if len(fl.parts) == 1:
+            return self.shards[0]._drain(fl.parts[0], into=into,
+                                         consume=consume)
+        out = into if into is not None else np.empty((fl.b, fl.M), np.int32)
+        waited, r = 0.0, 0
+        for shard, part in zip(self.shards, fl.parts):
+            _, w = shard._drain(part, into=out[r:r + part.b])
+            waited += w
+            r += part.b
+        if consume is not None:
+            return consume(out), waited
+        return out, waited
+
+    def stats(self) -> Dict[str, object]:
+        snap = super().stats()
+        snap["device"] = ",".join(str(d) for d in self.mesh)
+        snap["pinned_bytes"] = sum(s.pinned_bytes for s in self.shards)
+        return snap
 
 
 class CompiledKernelCache:
     """The engine registry: one ``KernelEngine`` per
-    ``(lowered fingerprint, lanes, device)``, created on first use and kept
-    for the life of the process — shared by the backends and
-    ``Executable.warmup``."""
+    ``(lowered fingerprint, lanes, placement)``, created on first use and
+    kept for the life of the process — shared by the backends and
+    ``Executable.warmup``.  The placement is one device (``engine_for``) or
+    a mesh (``sharded_engine_for``: ``sharded:`` and its devices)."""
 
     def __init__(self, buckets: Optional[Sequence[int]] = None) -> None:
         self.default_buckets = buckets
@@ -612,11 +762,40 @@ class CompiledKernelCache:
                 self._engines[key] = eng
             return eng
 
+    def sharded_engine_for(self, linked: LinkedConfig, *, lanes: int = 128,
+                           buckets: Optional[Sequence[int]] = None,
+                           mesh: Optional[Sequence] = None
+                           ) -> ShardedKernelEngine:
+        """The multi-device engine for ``linked`` over ``mesh`` (default:
+        every card, ``launch.mesh.make_host_mesh()``), cached like
+        ``engine_for``."""
+        if mesh is None:
+            from repro_torch.launch.mesh import make_host_mesh
+            mesh = make_host_mesh()
+        mesh = [torch.device(d) for d in mesh]
+        key = (lowered_fingerprint(linked), lanes,
+               "sharded:" + ",".join(str(d) for d in mesh))
+        with self._lock:
+            eng = self._engines.get(key)
+            if eng is None:
+                eng = ShardedKernelEngine(
+                    linked, lanes=lanes,
+                    buckets=buckets or self.default_buckets, mesh=mesh)
+                self._engines[key] = eng
+            return eng
+
     def run(self, linked: LinkedConfig, flats: np.ndarray, n_iters: int, *,
             lanes: int = 128, device="cuda"
             ) -> Tuple[np.ndarray, Dict[str, object]]:
         return self.engine_for(linked, lanes=lanes,
                                device=device).run(flats, n_iters)
+
+    def sharded_run(self, linked: LinkedConfig, flats: np.ndarray,
+                    n_iters: int, *, lanes: int = 128,
+                    mesh: Optional[Sequence] = None
+                    ) -> Tuple[np.ndarray, Dict[str, object]]:
+        return self.sharded_engine_for(linked, lanes=lanes,
+                                       mesh=mesh).run(flats, n_iters)
 
     def run_stream(self, linked: LinkedConfig, source, n_iters: int, *,
                    chunk: Optional[int] = None, depth: int = 2,

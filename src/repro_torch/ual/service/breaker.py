@@ -35,8 +35,10 @@ from typing import Dict, Optional, Tuple
 
 #: default degradation map: primary backend -> bit-exact fallback
 #: (both consume the shared lowered artifact, so survivors stay exact);
-#: ``torch``, the kernel's plain version on the CPU, degrades like ``cuda``
-DEGRADABLE: Dict[str, str] = {"cuda": "sim", "torch": "sim"}
+#: ``torch``, the kernel's plain version on the CPU, degrades like ``cuda``,
+#: and the sharded pair like their single-device twins
+DEGRADABLE: Dict[str, str] = {"cuda": "sim", "torch": "sim",
+                              "cuda_sharded": "sim", "torch_sharded": "sim"}
 
 
 class _ClassState:

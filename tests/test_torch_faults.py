@@ -201,7 +201,9 @@ def test_breaker_walks_like_the_reference():
     assert {c["state"] for c in stats["classes"].values()} == {"closed"}
     with pytest.raises(ValueError):
         CircuitBreaker(threshold=0)
-    assert CircuitBreaker().fallbacks == {"cuda": "sim", "torch": "sim"}
+    assert CircuitBreaker().fallbacks == {"cuda": "sim", "torch": "sim",
+                                          "cuda_sharded": "sim",
+                                          "torch_sharded": "sim"}
 
 
 # ---------------------------------------------------------------------------

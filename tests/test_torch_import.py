@@ -22,7 +22,11 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "import sys, torch\n"
         "import repro_torch, repro_torch.ual, repro_torch.interop\n"
         "import repro_torch.ual.service, repro_torch.ual.faults\n"
-        "import repro_torch.ual.cluster\n"
+        "import repro_torch.ual.cluster, repro_torch.ual.cluster.service\n"
+        "import repro_torch.ual.cluster.supervision\n"
+        "import repro_torch.ual.explore, repro_torch.ual.check\n"
+        "import repro_torch.launch.mesh\n"
+        "import repro_torch.core.energy, repro_torch.core.pipeline_schedule\n"
         "import repro_torch.kernels.cgra_exec.ops\n"
         "import repro_torch.kernels.cgra_exec.edge_cases\n"
         "import repro_torch.kernels.flash_attention.ops\n"
@@ -34,13 +38,24 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        "from repro_torch.launch.mesh import make_host_mesh\n"
+        "assert len(make_host_mesh('cpu', 2)) == 2\n"
+        "torch.cuda.device_count()\n"
         "assert not torch.cuda.is_initialized()\n"
         "print('ok', len(repro_torch.ual.list_backends()))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["ok", "4"]
+    assert proc.stdout.split() == ["ok", "6"]
+
+
+def test_port_offers_every_name_of_the_reference_ual():
+    import repro.ual
+    import repro_torch.ual
+    assert set(repro.ual.__all__) <= set(repro_torch.ual.__all__)
+    assert set(repro.ual.cluster.__all__) <= set(
+        repro_torch.ual.cluster.__all__)
 
 
 def _imported_roots(path: Path):

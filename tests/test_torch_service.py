@@ -141,7 +141,9 @@ def test_stats_key_sets_match_the_reference():
     for part in ("engine", "stream", "breaker", "cache"):
         assert sorted(port[part]) == sorted(ref[part]), part
     assert sorted(port["tenants"]["t"]) == sorted(ref["tenants"]["t"])
-    assert port["breaker"]["fallbacks"] == {"cuda": "sim", "torch": "sim"}
+    assert port["breaker"]["fallbacks"] == {
+        "cuda": "sim", "torch": "sim", "cuda_sharded": "sim",
+        "torch_sharded": "sim"}
     assert port["breaker"]["degraded_batches_total"] == 0
     assert port["engine"]["calls"] >= 1
 

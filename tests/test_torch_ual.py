@@ -223,7 +223,8 @@ def test_caches_never_read_each_other(tmp_path, monkeypatch):
 
 def test_cuda_backend_without_a_card_raises(monkeypatch, port_cache, engine):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert tual.list_backends() == ["cuda", "interp", "sim", "torch"]
+    assert tual.list_backends() == ["cuda", "cuda_sharded", "interp", "sim",
+                                    "torch", "torch_sharded"]
     program = tual.Program.from_kernel("gemm")
     target = tual.Target.from_name("hycube", rows=4, cols=4)
     assert target.backend == "cuda"
@@ -234,6 +235,8 @@ def test_cuda_backend_without_a_card_raises(monkeypatch, port_cache, engine):
         exe.run_batch(mems)
     with pytest.raises(RuntimeError, match="sees none"):
         exe.validate(backends=("sim", "cuda"))
+    with pytest.raises(RuntimeError, match="sees no"):
+        exe.run_batch(mems, backend="cuda_sharded")
     with pytest.raises(RuntimeError, match="sees none"):
         ops.cgra_exec_op(exe.map_result.config, program.flatten(mems[0])[None],
                          program.n_iters)
