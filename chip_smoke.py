@@ -14,12 +14,15 @@ the paper's users run (the benchmark kernels on HyCUBE 4x4 and PACE 8x8, an
 8192-word scratchpad, batches of 4096 test vectors), then ``run_stream``,
 the execution ``Service`` (``submit`` and ``submit_stream``) and its circuit
 breaker on the same backend, the sharded engine (``cuda_sharded``), the
-process cluster (``ClusterService``, with a worker killed and respawned)
-and the design-space front end (``explore``).  The serving paths:
+process cluster (``ClusterService``, with a worker killed and respawned),
+the design-space front end (``explore``) and the traced front end
+(``Program.from_function``, ``jax_poly``, LISA).  The serving paths:
 qwen3-8b (36 layers), zamba2-2.7b (54 Mamba-2 layers and 9 applications
-of the shared attention block) and rwkv6-1.6b (24 RWKV-6 blocks) at their
-published widths, random weights from the seed (zamba2's per-head decay from
-Mamba-2's initial ranges), through ``prefill_fn`` and ``greedy_generate``.
+of the shared attention block), rwkv6-1.6b (24 RWKV-6 blocks) and
+deepseek-moe-16b (28 layers of 64 routed experts top-6 and 2 shared) at
+their published widths, random weights from the seed (zamba2's per-head
+decay from Mamba-2's initial ranges), through ``prefill_fn`` and
+``greedy_generate``.
 Each phase prints one JSON line:
 
   device           the card's name and power limit (``nvidia-smi``), versions
@@ -83,6 +86,14 @@ Each phase prints one JSON line:
                    after CUDA is initialised: each unique key mapped once, a
                    second sweep all cache hits, every Pareto point validated
                    on cuda against interp (checked); wall
+  traced           per program (x * y + 1 and test_core_dfg's function
+                   through Program.from_function, and jax_poly) and fabric
+                   (HyCUBE 4x4, PACE 8x8): the reference's digest, validate
+                   on cuda and sim against interp, run_batch(4096) in one
+                   launch equal to sim (checked); compile s, wall
+  lisa             LISA trained on the card (60 steps on gemm), nw mapped
+                   with the mem-only learned bias: the loss falls and the
+                   II is no worse (checked); train s cold and warm
   flash_attention  per case (bf16: the tensor-core form; f32: the CUDA-core
                    form): the kernel vs its plain version (per element
                    2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want| in bf16),
@@ -110,15 +121,21 @@ Each phase prints one JSON line:
                    against the plain version
   lm_prefill       per model, in bf16, B = 2 x 2048 tokens: wall ms, kernel
                    launches, peak memory; the kernel path vs the plain
-                   path in f32 (checked) and in bf16, each vs the f32 model
-                   (printed)
+                   path in f32 (checked; deepseek-moe-16b on its first 8
+                   layers, F32_LAYERS) and in bf16, each vs the f32 model
+                   (printed); for the MoE model its aux loss, the (token,
+                   choice) pairs each layer drops at capacity factor 1.25,
+                   and the f32 kernel and plain paths' routing decisions
+                   that differ (printed)
   lm_serve         per model, greedy_generate, 4 requests x 16 new tokens:
                    tok/s, ms per decode step, decode path vs prefill
-                   (checked in f32)
+                   (checked in f32; the MoE model at its dropless capacity
+                   factor n_experts / top_k)
   lm_breakdown     per model, prefill and decode under torch.profiler
   kernels          the summary line of every kernel (cgra_exec's launches
                    by path: run_batch, stream, service, breaker, sharded,
-                   cluster and cluster_heal from the workers' engines, dse)
+                   cluster and cluster_heal from the workers' engines, dse,
+                   traced)
 
 The raw ``nvidia-smi`` line comes next, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -161,8 +178,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: (name, B, S, H, KV, D, dtype, causal, window) of the flash-attention
 #: phase: qwen3-8b's attention at B = 1 and at the main path's B = 2 (in
 #: bf16 and f32), danube-1.8b's width and 4096-token window at S = 8192, an
-#: encoder's full attention, a ragged length, f32 at D = 64, and zamba2's
-#: shared attention (MHA, D = 80) at its prefill shape
+#: encoder's full attention, a ragged length, f32 at D = 64, zamba2's
+#: shared attention (MHA, D = 80) and deepseek-moe-16b's (MHA, 16 heads of
+#: 128) at their prefill shapes
 FLASH_CASES = [
     ("qwen3-8b", 1, 2048, 32, 8, 128, "bfloat16", True, 0),
     ("qwen3-8b-prefill", 2, 2048, 32, 8, 128, "bfloat16", True, 0),
@@ -172,6 +190,7 @@ FLASH_CASES = [
     ("ragged", 1, 200, 32, 8, 128, "bfloat16", True, 0),
     ("f32-d64", 2, 512, 8, 2, 64, "float32", True, 0),
     ("zamba2-prefill", 2, 2048, 32, 32, 80, "bfloat16", True, 0),
+    ("deepseek-moe-prefill", 2, 2048, 16, 16, 128, "bfloat16", True, 0),
 ]
 #: a float kernel (flash_attention, mamba2_ssd, rwkv6) against its plain
 #: version, per element |got - want| <= atol + rtol * |want|.  f32: the
@@ -212,7 +231,12 @@ WKV_CASES = [
 ]
 #: the serving phases: each model at full width, B = 2 prompts of 2048
 #: tokens, 4 requests x 16 new tokens
-LM_ARCHS = ("qwen3-8b", "zamba2-2.7b", "rwkv6-1.6b")
+LM_ARCHS = ("qwen3-8b", "zamba2-2.7b", "rwkv6-1.6b", "deepseek-moe-16b")
+#: depth of the f32 checks where an f32 copy of the whole model does not fit
+#: beside the bf16 one: deepseek-moe-16b's 16.7 B parameters are 33 GB in
+#: bf16 and would be 67 GB more in f32 on an 80 GB card; its first 8 layers
+#: in f32 are 19 GB
+F32_LAYERS = {"deepseek-moe-16b": 8}
 PREFILL_B, PREFILL_S = 2, 2048
 SERVE_REQUESTS, SERVE_NEW = 4, 16
 #: the serving profiles' kernel groups: the three kernels, and cuBLAS's
@@ -221,6 +245,10 @@ LM_GROUPS = {
     "attn_kernel_ms": lambda n: "attn_kernel" in n,
     "ssd_kernel_ms": lambda n: "ssd_kernel" in n,
     "wkv_kernel_ms": lambda n: "wkv6_kernel" in n,
+    # the MoE's routing, dispatch and combine: top-k, the prefix sum, the
+    # one-hots, the index_add_ scatter and the gather
+    "moe_dispatch_ms": lambda n: any(k in n for k in (
+        "index", "scatter", "gather", "scan", "topk", "sort", "cumsum")),
     "gemm_ms": lambda n: ("gemm" in n or "cutlass" in n or "nvjet" in n
                           or "sm90_xmma" in n),
 }
@@ -1267,6 +1295,132 @@ def dse_phase(rng) -> int:
     return launches
 
 
+#: the traced phase: two functions of torch ops through
+#: ``Program.from_function`` (the reference's tests/test_ual.py lambda and
+#: tests/test_core_dfg.py's function) and the library's traced kernel, each
+#: with the JAX package's ``Program.digest`` of the same program
+#: (tests/test_torch_frontend.py holds the port to it on the CPU), compiled
+#: for HyCUBE 4x4 and PACE 8x8; then LISA trained on the card
+TRACED_DIGESTS = {
+    "traced_mul": "a2d1686f809a40893ac5ca288c2b40a4080ca6bb789c84a59c6776613fac65be",
+    "traced_select": "541a0b2fe3dbb6bcf3828b5acb508365561381919d0512f0f06c76a1527e8ba3",
+    "jax_poly": "3d6c53fc780b38b7a2c7d489b5bfd9914bdfca026539fee0b57cff53d7af0098",
+}
+TRACED_FABRICS = (("hycube", {"rows": 4, "cols": 4}), ("pace", {}))
+LISA_STEPS = 60
+
+
+def traced_programs():
+    """The traced phase's programs, by name."""
+    import torch
+
+    from repro_torch import ual
+    return {
+        "traced_mul": ual.Program.from_function(
+            lambda x, y: x * y + 1, {"x": 8, "y": 8}, name="traced_mul"),
+        "traced_select": ual.Program.from_function(
+            lambda v: torch.where(v > 2, v * v - 1, v + 5) & 0xFF, {"x": 8},
+            name="traced_select"),
+        "jax_poly": ual.Program.from_kernel("jax_poly")}
+
+
+def traced_phase(dev, rng) -> int:
+    """The traced front end on the card: each of ``traced_programs`` with
+    the reference's digest, compiled for each of TRACED_FABRICS on ``cuda``,
+    ``validate``d bit-exact against the interp oracle (``cuda`` and
+    ``sim``), a ``run_batch`` of BATCH in one launch (bucket calls
+    {BATCH: 1}) equal to the sim backend's; then LISA trained on the card
+    (LISA_STEPS steps on gemm's mapping on HyCUBE 4x4; then once more,
+    warm, for its time) and nw mapped with the mem-only learned bias: the
+    loss falls and the II is no worse than without it (the reference's
+    tests/test_core_mapper.py contract).
+    Returns the launches of the validations and run_batch calls."""
+    from repro_torch import ual
+    from repro_torch.core import adl, lisa
+    from repro_torch.core.dfg import apply_layout, plan_layout
+    from repro_torch.core.kernel_lib import KERNELS
+    from repro_torch.core.mapper import map_dfg
+    from repro_torch.kernels.cgra_exec import ops
+
+    backend = ual.get_backend("cuda")
+    ops.reset_launches()
+    for name, program in traced_programs().items():
+        check(program.digest == TRACED_DIGESTS[name],
+              f"traced: {name}'s digest {program.digest} is not the "
+              f"reference's")
+        for fab, kw in TRACED_FABRICS:
+            t0 = time.perf_counter()
+            exe = ual.compile(program, ual.Target.from_name(
+                fab, backend="cuda", **kw))
+            compile_s = time.perf_counter() - t0
+            check(exe.success, f"traced: {name} failed to map on {fab}")
+            before = ops.launches()
+            rep = exe.validate(backends=("cuda", "sim"), n_vectors=64)
+            check(rep.passed, f"traced: {name}@{fab}: validate failed: "
+                              f"{rep.backend_results}, {rep.mismatches} words")
+            mems = [program.random_inputs(rng) for _ in range(BATCH)]
+            engine = ual.default_engine().engine_for(
+                exe.lowered, lanes=backend.lanes, device=backend.device)
+            calls_before = dict(engine.stats()["bucket_calls"])
+            rb_before = ops.launches()
+            outs = exe.run_batch(mems)
+            rb_launches = ops.launches() - rb_before
+            rb_calls = {b: c - calls_before.get(b, 0)
+                        for b, c in engine.stats()["bucket_calls"].items()
+                        if c != calls_before.get(b, 0)}
+            check(rb_launches == 1 and rb_calls == {BATCH: 1},
+                  f"traced: {name}@{fab}: run_batch({BATCH}) made "
+                  f"{rb_launches} launches, bucket calls {rb_calls}")
+            sims = exe.run_batch(mems, backend="sim")
+            diff = sum(int((o[a] != s[a]).sum()) for o, s in zip(outs, sims)
+                       for a in program.outputs)
+            check(diff == 0, f"traced: {name}@{fab}: run_batch(cuda) != sim "
+                             f"in {diff} words")
+            emit("traced", program=name, digest=program.digest,
+                 fabric=exe.target.fabric.name, nodes=len(program.dfg.nodes),
+                 II=exe.II, compile_s=compile_s, validate=rep.passed,
+                 n_vectors=64, run_batch=BATCH, agrees_with_sim=True,
+                 run_batch_launches=rb_launches,
+                 run_batch_bucket_calls=rb_calls,
+                 wall_s=exe.last_info["wall_s"],
+                 throughput_sps=exe.last_info["throughput_sps"],
+                 launches=ops.launches() - before)
+    launches = ops.launches()
+
+    fab = adl.hycube(4, 4)
+
+    def laid(name):
+        d, _, _ = KERNELS[name]()
+        return apply_layout(d, plan_layout(d))
+    t0 = time.perf_counter()
+    feats, labels, pf = lisa.collect_dataset([(laid("gemm"), 0)], fab)
+    t1 = time.perf_counter()
+    params, losses = lisa.train(feats, labels, pf, steps=LISA_STEPS,
+                                device=dev)
+    t2 = time.perf_counter()
+    lisa.train(feats, labels, pf, steps=LISA_STEPS, device=dev)   # warm
+    warm_s = time.perf_counter() - t2
+    check(all(t.is_cuda for t in params.values()),
+          "lisa: the model did not train on the card")
+    check(losses[-1] < losses[0], f"lisa: the loss did not fall: "
+                                  f"{losses[0]} -> {losses[-1]}")
+    label_for = lisa.make_label_fn(params, fab, mem_only=True)
+    dfg = laid("nw")
+    base = map_dfg(dfg, fab, seed=3)
+    learned = map_dfg(dfg, fab, seed=3, label_fn=label_for(dfg))
+    check(learned.success and learned.II <= base.II,
+          f"lisa: nw maps at II {learned.II} with the learned bias, "
+          f"{base.II} without")
+    emit("lisa", train_kernel="gemm", fabric=fab.name, samples=len(labels),
+         steps=LISA_STEPS, device=str(params["w1"].device),
+         loss_first=losses[0], loss_last=losses[-1], collect_s=t1 - t0,
+         train_s=t2 - t1, warm_train_s=warm_s, held_out="nw",
+         II_base=base.II,
+         II_learned=learned.II, restarts_base=base.restarts,
+         restarts_learned=learned.restarts)
+    return launches
+
+
 def attention_bound(B, Sq, Skv, H, KV, D, dtype, causal, window):
     """Least time for one attention call: 4 * D flops per (query, key)
     pair the mask keeps, over the peak rate of ``dtype``, against q, k, v
@@ -1804,12 +1958,51 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+@contextlib.contextmanager
+def routing_log():
+    """Within the block, every MoE routing of the model
+    (``models.moe.route``) appends its (idx, keep) to the yielded list, one
+    entry a layer."""
+    from repro_torch.models import moe
+    route = moe.route
+    log = []
+
+    def logged(*args, **kw):
+        r = route(*args, **kw)
+        log.append((r.idx, r.keep))
+        return r
+    moe.route = logged
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def routing_diff(a, b, n_experts: int):
+    """Between two routing logs of the same tokens, summed over the
+    layers: the top-k choices that differ (an expert one path picked for a
+    token and the other did not) and the keep decisions that differ (a
+    (token, expert) pair kept on one path and not on the other)."""
+    import torch.nn.functional as F
+    topk = kept = 0
+    for (ia, ka), (ib, kb) in zip(a, b):
+        oa, ob = F.one_hot(ia, n_experts), F.one_hot(ib, n_experts)
+        topk += int((oa.sum(-2) - ob.sum(-2)).clamp_min(0).sum())
+        kept += int(((oa * ka[..., None]).sum(-2)
+                     != (ob * kb[..., None]).sum(-2)).sum())
+    return topk, kept
+
+
 def lm_phases(dev, seed: int, arch: str) -> dict:
     """One model at full width: the main path (``prefill_fn`` on B = 2
     prompts of 2048 tokens, ``greedy_generate`` for 4 requests) with the
     launches of each kernel checked, the kernel path against the plain path
-    and both against the f32 model (all layers), the decode path against
-    prefill, and profiles.  Returns the main path's launches by kernel."""
+    and both against the f32 model (all layers, or the first
+    ``F32_LAYERS[arch]``), the decode path against prefill, and profiles;
+    for a MoE model also its aux loss, the (token, choice) pairs each layer
+    drops at the published capacity factor, and the routing decisions that
+    differ between the f32 kernel and plain paths.  Returns the main
+    path's launches by kernel."""
     import numpy as np
     import torch
 
@@ -1820,6 +2013,7 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models.common import init_params, param_bytes
     from repro_torch.models.lm import forward, init_cache
+    from repro_torch.models.moe import expert_capacity
     from repro_torch.serve.serve_step import decode_fn, prefill_fn
 
     cfg = get_config(arch)
@@ -1881,8 +2075,10 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
     check(tuple(last.shape) == (PREFILL_B, cfg.vocab),
           f"prefill logits {tuple(last.shape)}")
 
-    # ---- all layers: the kernel path against the plain path --------------
-    # checked in f32.  In bf16 a one-ulp difference in one kernel output
+    # ---- the kernel path against the plain path ----------------------------
+    # checked in f32, on all layers or the first F32_LAYERS[arch] (the cut:
+    # ``cut_params``, ``cut_cfg``; the bf16 model is held to the f32 one at
+    # the same cut).  In bf16 a one-ulp difference in one kernel output
     # grows layer by layer with these random weights, so any two bf16 paths
     # end 0.1-0.3 apart at the logits: the bf16 numbers are printed, not
     # checked, and the kernels' bf16 arithmetic is held per call above
@@ -1891,19 +2087,48 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
         plain = forward(params, cfg, tokens)[0][:, -1]
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    cfg32 = cfg.scaled(dtype=torch.float32)
-    params32 = to_f32(params)                 # the same weights, in f32
-    kern32 = forward(params32, cfg32, tokens)[0][:, -1]
-    with plain_kernels():
+    n32 = F32_LAYERS.get(arch, cfg.n_layers)
+    cut_cfg = cfg.scaled(n_layers=n32)
+    cut_params = {**params, "layers": params["layers"][:n32]}
+    if n32 < cfg.n_layers:
+        last_c = forward(cut_params, cut_cfg, tokens)[0][:, -1]
+        with plain_kernels():
+            plain_c = forward(cut_params, cut_cfg, tokens)[0][:, -1]
+    else:
+        last_c, plain_c = last, plain
+    cfg32 = cut_cfg.scaled(dtype=torch.float32)
+    params32 = to_f32(cut_params)             # the same weights, in f32
+    with routing_log() as kern_routes:
+        kern32 = forward(params32, cfg32, tokens)[0][:, -1]
+    with plain_kernels(), routing_log() as plain_routes:
         plain32 = forward(params32, cfg32, tokens)[0][:, -1]
     err = {"kernel_vs_plain": rel_l2(last, plain),
-           "kernel_vs_f32": rel_l2(last, plain32),
-           "plain_vs_f32": rel_l2(plain, plain32),
+           "kernel_vs_f32": rel_l2(last_c, plain32),
+           "plain_vs_f32": rel_l2(plain_c, plain32),
            "f32_kernel_vs_f32_plain": rel_l2(kern32, plain32)}
     top1 = {name: float((a.argmax(-1) == b.argmax(-1)).float().mean())
             for name, a, b in (("kernel_vs_plain", last, plain),
-                               ("kernel_vs_f32", last, plain32),
-                               ("plain_vs_f32", plain, plain32))}
+                               ("kernel_vs_f32", last_c, plain32),
+                               ("plain_vs_f32", plain_c, plain32))}
+    moe_info = None
+    if cfg.family == "moe":
+        # the main path's routing at the published capacity factor: the
+        # (token, choice) pairs each layer's experts had no room for
+        with routing_log() as routes:
+            _, aux = forward(params, cfg, tokens)
+        T = PREFILL_B * PREFILL_S
+        flips, keep_flips = routing_diff(kern_routes, plain_routes,
+                                         cfg.n_experts)
+        moe_info = {
+            "aux": float(aux), "capacity_factor": cfg.capacity_factor,
+            "capacity": expert_capacity(T, cfg.n_experts, cfg.top_k,
+                                        cfg.capacity_factor),
+            "choices_per_layer": T * cfg.top_k,
+            "dropped_per_layer": [int((~keep).sum()) for _, keep in routes],
+            "f32_topk_choices_differing": flips,
+            "f32_keep_decisions_differing": keep_flips,
+            "f32_routing_decisions": n32 * T * cfg.top_k}
+        del routes
     emit("lm_prefill", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
          B=PREFILL_B, S=PREFILL_S, params=cfg.param_count(),
          param_bytes=param_bytes(params), init_s=init_s,
@@ -1911,12 +2136,12 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
          tokens_per_s=PREFILL_B * PREFILL_S / walls[1] * 1e3,
          plain_path_wall_ms=plain_ms, launches=prefill_launches,
          launches_per_prefill={k: n // 2 for k, n in prefill_launches.items()},
-         peak_memory_bytes=peak_prefill, rel_l2=err, top1_agreement=top1,
-         tol_f32=2e-3)
+         peak_memory_bytes=peak_prefill, f32_layers=n32, rel_l2=err,
+         top1_agreement=top1, tol_f32=2e-3, moe=moe_info)
     check(err["f32_kernel_vs_f32_plain"] <= 2e-3,
-          f"{arch}: f32 {cfg.n_layers}-layer prefill: kernel vs plain rel L2 "
-          f"{err['f32_kernel_vs_f32_plain']}")
-    del plain, kern32, plain32
+          f"{arch}: f32 {n32}-layer prefill: kernel vs plain rel L2 "
+          f"{err['f32_kernel_vs_f32_plain']} (moe: {moe_info})")
+    del plain, kern32, plain32, last_c, plain_c, kern_routes, plain_routes
 
     # ---- serving ------------------------------------------------------------
     toks = outs[1]
@@ -1925,8 +2150,15 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token ids")
     check(bool((outs[0] == outs[1]).all()), "greedy decoding not repeatable")
     # the decode path against prefill on request 0's prompt (its last
-    # logits after the prompt ran token by token): checked in f32; the bf16
-    # numbers, as above, are printed
+    # logits after the prompt ran token by token): checked in f32 at the
+    # f32 cut; the bf16 numbers, as above, are printed (decode_vs_prefill
+    # at full depth, the others at the cut).  A MoE model runs this check at
+    # the dropless factor n_experts / top_k (C >= the tokens routed): at
+    # its published 1.25 a prefill of the prompt drops (token, choice)
+    # pairs that decode, routing one token a step, keeps, so the two
+    # differ by the model's own semantics
+    factor = (cfg.n_experts / cfg.top_k if cfg.family == "moe"
+              else cfg.capacity_factor)
     p0 = torch.from_numpy(prompts[0][None, :]).to(dev)
 
     def decoded(params, cfg):
@@ -1935,23 +2167,35 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
         for t in range(p0.shape[1]):
             _, logits, cache = decode(params, cache, p0[:, t:t + 1])
         return logits[:, -1]
-    dec, dec32 = decoded(params, cfg), decoded(params32, cfg32)
-    pre, pre32 = (prefill_fn(c)(p, {"tokens": p0})
-                  for p, c in ((params, cfg), (params32, cfg32)))
-    del params32
+    runs = {name: (p, c.scaled(capacity_factor=factor)) for name, p, c in (
+        ("full", params, cfg), ("cut", cut_params, cut_cfg),
+        ("f32", params32, cfg32)) if name != "cut" or n32 < cfg.n_layers}
+    dec = {name: decoded(p, c) for name, (p, c) in runs.items()}
+    pre = {name: prefill_fn(c)(p, {"tokens": p0})
+           for name, (p, c) in runs.items()}
+    dec.setdefault("cut", dec["full"])
+    pre.setdefault("cut", pre["full"])
+    del params32, runs
     torch.cuda.empty_cache()
-    err = {"decode_vs_prefill": rel_l2(dec, pre),
-           "decode_vs_f32": rel_l2(dec, pre32),
-           "prefill_vs_f32": rel_l2(pre, pre32),
-           "f32_decode_vs_f32_prefill": rel_l2(dec32, pre32)}
+    err = {"decode_vs_prefill": rel_l2(dec["full"], pre["full"]),
+           "decode_vs_f32": rel_l2(dec["cut"], pre["f32"]),
+           "prefill_vs_f32": rel_l2(pre["cut"], pre["f32"]),
+           "f32_decode_vs_f32_prefill": rel_l2(dec["f32"], pre["f32"])}
     emit("lm_serve", arch=cfg.name, requests=SERVE_REQUESTS,
          new_tokens=SERVE_NEW, decode_steps=steps, wall_s_cold=serve_walls[0],
          wall_s=serve_walls[1],
          tok_s=SERVE_REQUESTS * SERVE_NEW / serve_walls[1],
          ms_per_decode_step=serve_walls[1] / steps * 1e3,
-         prompt_len=int(p0.shape[1]), rel_l2=err, sample=toks[0].tolist())
+         prompt_len=int(p0.shape[1]), f32_layers=n32,
+         capacity_factor_of_check=factor, rel_l2=err,
+         note=(None if cfg.family != "moe" else
+               f"decode vs prefill at the dropless factor n_experts/top_k = "
+               f"{factor:.4g}, not the published {cfg.capacity_factor}, "
+               f"under which a prefill of the prompt may drop (token, "
+               f"choice) pairs that decode keeps"),
+         sample=toks[0].tolist())
     check(err["f32_decode_vs_f32_prefill"] <= 2e-3,
-          f"{arch}: f32 decode vs prefill rel L2 "
+          f"{arch}: f32 {n32}-layer decode vs prefill rel L2 "
           f"{err['f32_decode_vs_f32_prefill']}")
 
     # ---- where the time goes --------------------------------------------------
@@ -1974,7 +2218,7 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
          cache_len=cache["len"], device_ms_per_step=step_ms / 4,
          host_enqueue_ms_per_step=enqueue_ms / 4,
          **device_profile(four_steps, LM_GROUPS))
-    del params, cache
+    del params, cut_params, cache
     torch.cuda.empty_cache()
     return main_launches
 
@@ -2023,7 +2267,8 @@ def main(argv=None) -> int:
         "sharded": sharded_phase(rng, compiled),
         "cluster": cluster_phase(rng, compiled),
         "cluster_heal": cluster_heal_phase(rng, compiled),
-        "dse": dse_phase(rng)}
+        "dse": dse_phase(rng),
+        "traced": traced_phase(dev, rng)}
     flash = flash_phases(dev, sass["flash_attention"])
     ssd = ssd_phases(dev, sass["mamba2_ssd"])
     wkv = wkv_phases(dev, sass["rwkv6"])

@@ -1,15 +1,18 @@
 """Architecture registry: ``--arch <id>`` resolves through ``get_config``.
 
-The dense architectures, rwkv6-1.6b and zamba2-2.7b of the JAX package's
-registry, at their published widths; the other families' configurations
-come with their ports (ROADMAP A9).  ``smoke_config`` gives a reduced
-same-family configuration for CPU tests, as in the reference.
+The dense architectures, the MoE architectures (deepseek-moe-16b,
+arctic-480b), rwkv6-1.6b and zamba2-2.7b of the JAX package's registry, at
+their published widths; hubert and paligemma come with their ports
+(ROADMAP A9).  ``smoke_config`` gives a reduced same-family configuration
+for CPU tests, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
+from repro_torch.configs.arctic_480b import CONFIG as _arctic
+from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek
 from repro_torch.configs.gemma3_27b import CONFIG as _gemma3
 from repro_torch.configs.h2o_danube3_4b import CONFIG as _danube3
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as _danube18
@@ -19,8 +22,8 @@ from repro_torch.configs.zamba2_2_7b import CONFIG as _zamba2
 from repro_torch.models.common import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (_gemma3, _qwen3, _danube3, _danube18, _rwkv6,
-                        _zamba2)
+    c.name: c for c in (_deepseek, _arctic, _gemma3, _qwen3, _danube3,
+                        _danube18, _rwkv6, _zamba2)
 }
 
 FAMILIES = {name: c.family for name, c in ARCHS.items()}
@@ -33,8 +36,9 @@ def get_config(name: str) -> ModelConfig:
 
 
 def smoke_config(name: str) -> ModelConfig:
-    """Reduced same-family config: tiny layers/width/vocab (the reference's
-    reductions for the dense, rwkv6 and zamba2 families)."""
+    """Reduced same-family config: tiny layers/width/experts/vocab (the
+    reference's reductions for the dense, moe, rwkv6 and zamba2
+    families)."""
     c = get_config(name)
     kw = dict(
         n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=256,
@@ -42,6 +46,11 @@ def smoke_config(name: str) -> ModelConfig:
     )
     if c.n_kv_heads:
         kw["n_kv_heads"] = min(c.n_kv_heads, 2)
+    if c.family == "moe":
+        kw.update(n_experts=8, top_k=min(c.top_k, 2),
+                  n_shared_experts=min(c.n_shared_experts, 1),
+                  expert_d_ff=32,
+                  capacity_factor=8.0)   # ~dropless so decode == forward
     if c.family == "rwkv6":
         kw.update(n_heads=4, d_model=64)          # head size 16
     if c.family == "zamba2":

@@ -8,6 +8,9 @@ Here the frontend is:
   * ``DFGBuilder`` — a small builder DSL for loop-body kernels (the analogue
     of Morpher's annotated-C input) with explicit ``load``/``store``/
     ``counter``/``recur`` for memory and loop-carried state,
+  * ``trace_into`` — ``torch.fx``-based DFG extraction for the pure-compute
+    part of a kernel written with torch ops (the analogue of Morpher's
+    LLVM-based DFG generation),
   * ``interpret`` — the reference executor used for automated test-vector
     validation (paper Table II's distinguishing feature),
   * ``DataLayout`` — round-robin bank allocation with base addresses folded
@@ -273,6 +276,142 @@ class DFGBuilder:
                               array=n.array))
         return DFG(nodes, dict(self._arrays), name=self.name,
                    outputs=tuple(self._outputs))
+
+
+# ---------------------------------------------------------------------------
+# torch.fx-based extraction (LLVM-frontend analogue)
+# ---------------------------------------------------------------------------
+
+def _fx_targets():
+    """fx call targets -> DFG opcodes, or the name of a call that
+    ``trace_into`` lowers itself."""
+    import builtins
+    import operator
+
+    import torch
+    return {
+        operator.add: "ADD", operator.sub: "SUB", operator.mul: "MUL",
+        operator.and_: "AND", operator.or_: "OR", operator.xor: "XOR",
+        operator.lshift: "SHL", operator.rshift: "SHR",
+        operator.lt: "CMPLT", operator.gt: "CMPGT", operator.eq: "CMPEQ",
+        operator.ne: "CMPNE", operator.le: "CMPLE", operator.ge: "CMPGE",
+        operator.abs: "ABS", builtins.abs: "ABS", torch.abs: "ABS",
+        torch.minimum: "MIN", torch.maximum: "MAX",
+        operator.neg: "neg", operator.pow: "pow", torch.where: "where",
+        torch.clamp: "clamp",
+    }
+
+
+#: fx method calls that change only a value's type, which int32 ignores
+_FX_PASS = ("to", "int", "long", "type")
+
+
+def trace_into(b: DFGBuilder, fn: Callable, inputs: Sequence[Ref]) -> List[Ref]:
+    """Trace a pure scalar-int function written with torch ops (Python's
+    operators, ``torch.where``, ``torch.minimum``/``maximum``/``clamp``,
+    ``abs``, ``**`` with an int exponent) into the builder.
+
+    ``fn`` takes len(inputs) int32 scalars and returns one or a tuple of
+    int32 scalars; ``torch.fx.symbolic_trace`` records its graph, and each
+    call becomes the DFG node the jaxpr walker of the JAX package makes
+    for the same function written with ``jnp``: a literal operand stays
+    where the function put it (a trailing one is folded into the node's
+    immediate), negation is ``SUB(0, x)``, ``x ** n`` a chain of ``MUL``,
+    ``torch.where(c, a, b)`` is ``SELECT(c, a, b)``, and a call on
+    constants alone is folded to a ``MOVC``.  Anything else raises
+    ``NotImplementedError``.
+    """
+    import torch.fx
+
+    gm = torch.fx.symbolic_trace(fn)
+    targets = _fx_targets()
+    env: Dict[str, object] = {}
+    placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
+    if len(placeholders) != len(inputs):
+        raise ValueError(f"fn takes {len(placeholders)} arguments, "
+                         f"{len(inputs)} inputs given")
+    env.update({n.name: r for n, r in zip(placeholders, inputs)})
+
+    def read(a):
+        if isinstance(a, torch.fx.Node):
+            return env[a.name]
+        if isinstance(a, (bool, int, np.integer)):
+            return int(a)
+        if isinstance(a, (tuple, list)):
+            return [read(x) for x in a]
+        raise NotImplementedError(f"operand {a!r} in DFG extraction")
+
+    def emit(op: str, args):
+        if all(isinstance(a, int) for a in args):
+            return b.op("MOVC", const=_const_eval(op, args))
+        return b.op(op, *args)
+
+    def constant(node):
+        t = gm
+        for part in node.target.split("."):
+            t = getattr(t, part)
+        if not (isinstance(t, torch.Tensor) and t.dim() == 0
+                and not t.is_floating_point() and not t.is_complex()):
+            raise NotImplementedError(f"constant {node.target} is not an "
+                                      f"integer scalar")
+        return int(t.item())
+
+    out = None
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            continue
+        if node.op == "get_attr":
+            env[node.name] = constant(node)
+            continue
+        if node.op == "output":
+            out = read(node.args[0])
+            break
+        if node.op == "call_method" and node.target in _FX_PASS:
+            env[node.name] = read(node.args[0])
+            continue
+        args = [read(a) for a in node.args]
+        kwargs = {k: read(v) for k, v in node.kwargs.items()}
+        kind = (targets.get(node.target) if node.op == "call_function"
+                else None)
+        if kind is None or (kwargs and kind != "clamp"):
+            raise NotImplementedError(
+                f"{node.op} {getattr(node.target, '__name__', node.target)} "
+                f"in DFG extraction")
+        if kind == "neg":
+            x = args[0]
+            res = b.op("SUB", 0, x) if isinstance(x, Ref) else -x
+        elif kind == "pow":
+            x, y = args
+            if not isinstance(y, int) or y < 1:
+                raise NotImplementedError(f"x ** {y!r} in DFG extraction: "
+                                          f"the exponent must be an int >= 1")
+            res = x
+            for _ in range(y - 1):
+                res = emit("MUL", [res, x])
+        elif kind == "where":
+            pred, on_true, on_false = args
+            res = b.op("SELECT", pred, on_true, on_false)
+        elif kind == "clamp":
+            lo = args[1] if len(args) > 1 else kwargs.get("min")
+            hi = args[2] if len(args) > 2 else kwargs.get("max")
+            if (lo is None and hi is None) or set(kwargs) - {"min", "max"}:
+                raise NotImplementedError(f"clamp{tuple(kwargs)} in DFG "
+                                          f"extraction")
+            res = args[0]
+            if lo is not None:
+                res = emit("MAX", [res, lo])
+            if hi is not None:
+                res = emit("MIN", [res, hi])
+        else:
+            res = emit(kind, args)
+        env[node.name] = res
+    outs = out if isinstance(out, list) else [out]
+    return [o if isinstance(o, Ref) else b.op("MOVC", const=o) for o in outs]
+
+
+def _const_eval(op: str, args: List[int]) -> int:
+    a = [np.int32(x) for x in args]
+    return int(_eval_op(op, a, None))
 
 
 # ---------------------------------------------------------------------------

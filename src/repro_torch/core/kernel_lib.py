@@ -16,7 +16,7 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
-from repro_torch.core.dfg import DFG, DFGBuilder
+from repro_torch.core.dfg import DFG, DFGBuilder, trace_into
 
 KernelEntry = Tuple[DFG, Callable[[np.random.Generator], Dict[str, np.ndarray]], int]
 
@@ -244,6 +244,28 @@ def nw() -> KernelEntry:
     return b.build(), mk, N
 
 
+def jax_poly() -> KernelEntry:
+    """Traced compute kernel (exercises ``trace_into`` end-to-end).  The
+    name is the JAX package's: the same polynomial, written there with
+    ``jnp`` and here with torch ops, gives the same DFG and digest."""
+    b = DFGBuilder("jax_poly")
+    N = N_ITERS
+    b.array("x", N)
+    b.array("y", N, output=True)
+    i = b.counter()
+    x = b.load("x", i)
+
+    def f(v):
+        import torch
+        p = v * v + 3 * v - 7
+        q = torch.where(p > 0, p, -p)
+        return torch.minimum(q, torch.tensor(1 << 20)) ^ 1023
+
+    (out,) = trace_into(b, f, [x])
+    b.store("y", i, out)
+    return b.build(), (lambda r: {"x": _rand(r, N)}), N
+
+
 KERNELS: Dict[str, Callable[[], KernelEntry]] = {
     "fft": fft,
     "adpcm": adpcm,
@@ -252,4 +274,5 @@ KERNELS: Dict[str, Callable[[], KernelEntry]] = {
     "dct": dct,
     "nw": nw,
     "gemm": gemm,
+    "jax_poly": jax_poly,
 }

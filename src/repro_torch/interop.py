@@ -113,7 +113,9 @@ def lm_params_from_state(state: Dict[str, object], cfg: ModelConfig,
     arrays (per-layer weights stacked on a leading ``(L, ...)`` axis, as the
     reference's ``init_params`` makes them), on ``device``, each in its own
     dtype.  dense: ``attn``, ``mlp``, ``norm1``, ``norm2`` stacked ``(L,
-    ...)``.  rwkv6: ``rwkv`` stacked ``(L, ...)``.  zamba2: ``mamba``
+    ...)``.  moe: ``attn``, ``moe`` (``router``, ``we_*``, ``ws_*`` and
+    ``dense`` where the config has them), ``norm1``, ``norm2`` stacked
+    ``(L, ...)``.  rwkv6: ``rwkv`` stacked ``(L, ...)``.  zamba2: ``mamba``
     stacked ``(L, ...)``, and ``shared_attn``,
     ``shared_mlp``, ``shared_norm1``, ``shared_norm2`` stacked ``(1, ...)``,
     which become ``params["shared"]``."""
@@ -146,7 +148,8 @@ def lm_params_from_state(state: Dict[str, object], cfg: ModelConfig,
         params["shared"] = {n: layer(state[f"shared_{n}"], 0)
                             for n in ("attn", "mlp", "norm1", "norm2")}
         return params
+    ffn = "moe" if cfg.family == "moe" else "mlp"
     params["layers"] = [{n: layer(state[n], i)
-                         for n in ("attn", "mlp", "norm1", "norm2")}
+                         for n in ("attn", ffn, "norm1", "norm2")}
                         for i in range(L)]
     return params

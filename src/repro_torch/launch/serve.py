@@ -2,11 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \
         --device cpu --requests 16 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
 
 Requests arrive with different prompt lengths, are left-padded into a
 batch, run through the decode path token by token (which keeps the cache
 semantics the same for every family), then decoded greedily.  Runs on the
-card unless ``--device cpu`` is given.
+card unless ``--device cpu`` is given; a model whose weights do not fit the
+card (arctic-480b's 960 GB in bf16 on one H100) is refused before any
+weight is made.
 """
 from __future__ import annotations
 
@@ -57,6 +60,13 @@ def main(argv=None) -> dict:
     if cfg.family == "hubert":
         raise SystemExit("hubert is encoder-only: no decode path")
     device = torch.device(args.device)
+    if device.type == "cuda":
+        need = cfg.param_count() * torch.empty((), dtype=cfg.dtype).itemsize
+        have = torch.cuda.get_device_properties(device).total_memory
+        if need > have:
+            raise SystemExit(f"{cfg.name}: {need / 1e9:.1f} GB of weights do "
+                             f"not fit the card's {have / 1e9:.1f} GB; "
+                             f"try --smoke")
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab, rng.integers(4, 12)).astype(np.int32)
                for _ in range(args.requests)]

@@ -10,6 +10,11 @@ them in Python.  The layout, besides ``embed``, ``final_norm`` (and
 ``lm_head`` when untied):
 
   dense   ``layers[i]`` = {``attn``, ``mlp``, ``norm1``, ``norm2``}
+  moe     ``layers[i]`` = {``attn``, ``moe``, ``norm1``, ``norm2``}; ``moe`` =
+          {``router`` (d, E) f32, ``we_gate``/``we_up`` (E, d, f),
+          ``we_down`` (E, f, d), the shared experts ``ws_gate``/``ws_up``
+          (d, S f) and ``ws_down`` (S f, d) when ``n_shared_experts`` = S >
+          0, and a dense MLP ``dense`` when ``dense_residual``}
   rwkv6   ``layers[i]`` = one RWKV-6 block {``mix``, ``wr``, ``wk``, ``wv``,
           ``wg``, ``ww``, ``w_bias``, ``u``, ``wo``, ``ln_x``, ``ffn_k``,
           ``ffn_v``, ``ffn_r``, ``norm1``, ``norm2``}
@@ -19,7 +24,7 @@ them in Python.  The layout, besides ``embed``, ``final_norm`` (and
           ``shared_attn_every`` layers, {``attn``, ``mlp``, ``norm1``,
           ``norm2``} (the reference's ``shared_*`` entries, unstacked)
 
-The dense, rwkv6 and zamba2 families are ported; the others raise
+The dense, moe, rwkv6 and zamba2 families are ported; the others raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -33,16 +38,15 @@ import torch
 
 #: families the port does not run yet -> the ROADMAP item that brings them
 UNPORTED_FAMILIES = {
-    "moe": "ROADMAP A9 (models/moe)",
     "hubert": "ROADMAP A9 (the audio front end)",
     "paligemma": "ROADMAP A9 (the image front end, prefix-LM attention)",
 }
 
 
 def check_family(cfg: "ModelConfig") -> None:
-    """Raise unless the port runs ``cfg``'s family (``dense``, ``rwkv6``,
-    ``zamba2``)."""
-    if cfg.family in ("dense", "rwkv6", "zamba2"):
+    """Raise unless the port runs ``cfg``'s family (``dense``, ``moe``,
+    ``rwkv6``, ``zamba2``)."""
+    if cfg.family in ("dense", "moe", "rwkv6", "zamba2"):
         return
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(
@@ -146,6 +150,17 @@ class ModelConfig:
             n += attn + 3 * d * c.d_ff
         return n
 
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        c = self
+        d = c.d_model
+        eff = c.expert_d_ff or c.d_ff
+        total = self.param_count()
+        inactive = 3 * d * eff * (c.n_experts - c.top_k) * c.n_layers
+        return total - inactive
+
 
 # ---------------------------------------------------------------------------
 # Initializers (one dict per layer)
@@ -181,6 +196,28 @@ def init_mlp(gen, d_in, d_ff, act, device, dtype) -> Dict:
     }
     if act == "silu":
         p["w_gate"] = _dense(gen, (d_in, d_ff), device, dtype)
+    return p
+
+
+def init_moe(gen, c: ModelConfig, device, dtype) -> Dict:
+    """One MoE block: the f32 router (at 0.02), the routed experts' gated
+    MLPs stacked on a leading expert axis, the shared experts' MLP fused
+    to width ``n_shared_experts`` f, and arctic's dense residual MLP."""
+    d, E = c.d_model, c.n_experts
+    eff = c.expert_d_ff or c.d_ff
+    p = {
+        "router": _dense(gen, (d, E), device, torch.float32, scale=0.02),
+        "we_gate": _dense(gen, (E, d, eff), device, dtype),
+        "we_up": _dense(gen, (E, d, eff), device, dtype),
+        "we_down": _dense(gen, (E, eff, d), device, dtype),
+    }
+    if c.n_shared_experts:
+        S = c.n_shared_experts
+        p["ws_gate"] = _dense(gen, (d, S * eff), device, dtype)
+        p["ws_up"] = _dense(gen, (d, S * eff), device, dtype)
+        p["ws_down"] = _dense(gen, (S * eff, d), device, dtype)
+    if c.dense_residual:
+        p["dense"] = init_mlp(gen, d, c.d_ff, c.mlp_act, device, dtype)
     return p
 
 
@@ -239,7 +276,8 @@ def init_rwkv6(gen, c: ModelConfig, device, dtype) -> Dict:
 def init_params(gen: torch.Generator, c: ModelConfig, device) -> Dict:
     """Random parameters, drawn from ``gen`` (a generator on ``device``)
     with the reference's shapes and scales: normal times 1/sqrt(fan_in),
-    the embedding times 0.02, the conv, rwkv6's mixes and ``u`` times 0.5,
+    the embedding and the MoE router times 0.02 (the router in f32), the
+    conv, rwkv6's mixes and ``u`` times 0.5,
     its ``ww`` times 0.01, norms and ``D`` set to ones, ``w_bias`` to -5,
     ``A_log`` and ``dt_bias`` to f32 zeros.  Weights are made one
     tensor at a time, so no f32 copy of the model is ever held."""
@@ -260,6 +298,13 @@ def init_params(gen: torch.Generator, c: ModelConfig, device) -> Dict:
     if c.family == "rwkv6":
         params["layers"] = [init_rwkv6(gen, c, device, dtype)
                             for _ in range(c.n_layers)]
+    elif c.family == "moe":
+        params["layers"] = [
+            {"attn": init_attention(gen, c, device, dtype),
+             "moe": init_moe(gen, c, device, dtype),
+             "norm1": torch.ones((d,), dtype=dtype, device=device),
+             "norm2": torch.ones((d,), dtype=dtype, device=device)}
+            for _ in range(c.n_layers)]
     elif c.family == "zamba2":
         params["layers"] = [init_mamba2(gen, c, device, dtype)
                             for _ in range(c.n_layers)]

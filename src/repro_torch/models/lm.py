@@ -1,9 +1,12 @@
-"""Model assembly for the dense, rwkv6 and zamba2 families: forward pass
-(training / prefill) and single-token decode (the JAX package's
-``models/lm.py``, in PyTorch).
+"""Model assembly for the dense, moe, rwkv6 and zamba2 families: forward
+pass (training / prefill), the loss, and single-token decode (the JAX
+package's ``models/lm.py``, in PyTorch).
 
 dense:  embed -> per-layer [RMSNorm, attention, residual, RMSNorm, MLP,
         residual] -> final RMSNorm -> tied logits.
+moe:    the dense skeleton with the MLP replaced by the MoE block
+        (``models/moe.py``); its load-balance loss, summed over the layers
+        and divided by their number, is ``forward``'s ``aux``.
 rwkv6:  embed -> per-layer RWKV-6 block (time mix with the WKV, channel
         mix) -> final RMSNorm -> tied logits.
 zamba2: embed -> groups of ``shared_attn_every`` Mamba-2 layers, each group
@@ -24,6 +27,7 @@ from repro_torch.models.common import ModelConfig, check_family
 from repro_torch.models.layers import (GLOBAL_WINDOW, attention_block,
                                        decode_attention, mlp, rms_norm, rope)
 from repro_torch.models.mamba2 import mamba2_layer
+from repro_torch.models.moe import moe_block
 from repro_torch.models.rwkv6 import rwkv6_decode_step, rwkv6_layer
 
 
@@ -53,7 +57,9 @@ def _logits(params, cfg, h):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, tokens, *, block_kv: int = 0):
-    """tokens (B, S) -> (logits (B, S, V), aux_loss scalar)."""
+    """tokens (B, S) -> (logits (B, S, V), aux_loss scalar); ``aux`` is the
+    MoE load-balance loss averaged over the layers, 0 for the other
+    families."""
     check_family(cfg)
     block_kv = block_kv or cfg.attn_block_kv or (1 << 30)
     if cfg.family == "rwkv6":
@@ -62,13 +68,22 @@ def forward(params, cfg: ModelConfig, tokens, *, block_kv: int = 0):
         return _forward_zamba2(params, cfg, tokens, block_kv)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp, win in zip(params["layers"], layer_windows(cfg)):
         h = h + attention_block(rms_norm(h, lp["norm1"]), lp["attn"], cfg,
                                 positions, causal=cfg.causal, window=win,
                                 block_kv=block_kv)
-        h = h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return _logits(params, cfg, h), aux
+        f, a = _ffn(rms_norm(h, lp["norm2"]), lp, cfg)
+        h = h + f
+        aux = aux + a
+    return _logits(params, cfg, h), aux / cfg.n_layers
+
+
+def _ffn(h, lp, cfg):
+    """The feed-forward sub-block of a dense or moe layer: (out, aux)."""
+    if cfg.family == "moe":
+        return moe_block(h, lp["moe"], cfg)
+    return mlp(h, lp["mlp"], cfg.mlp_act), 0.0
 
 
 def _forward_rwkv6(params, cfg, tokens):
@@ -81,6 +96,33 @@ def _forward_rwkv6(params, cfg, tokens):
         h, _, _ = rwkv6_layer(h, zeros, zeros, lp, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, cfg, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any],
+            aux_weight: float = 0.01, z_weight: float = 1e-4):
+    """Next-token loss on ``batch["tokens"]`` (B, S) under the optional
+    ``loss_mask`` (B, S), in f32, plus the z-loss and the weighted aux
+    loss; returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    inp, targets = tokens[:, :-1], tokens[:, 1:].long()
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(targets, dtype=torch.bool) if mask is None
+            else mask[:, 1:])
+    logits, aux = forward(params, cfg, inp)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, targets[..., None])[..., 0]
+    nll = (logz - ll) * mask
+    denom = torch.clamp_min(mask.sum(), 1)
+    loss = nll.sum() / denom
+    zloss = z_weight * (logz.square() * mask).sum() / denom
+    total = loss + zloss + aux_weight * aux
+    return total, {"loss": loss, "zloss": zloss, "aux": aux,
+                   "tokens": denom}
 
 
 def _shared_groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -113,7 +155,7 @@ def _forward_zamba2(params, cfg, tokens, block_kv: int):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Dict[str, Any]:
     """Zeroed decode cache; ``len`` is the number of positions written, a
-    Python int.  dense: KV cache (L, batch, max_len, KV, D) in
+    Python int.  dense and moe: KV cache (L, batch, max_len, KV, D) in
     ``cfg.dtype``.  rwkv6: per layer the WKV state (L, batch, H, K, K) in
     f32 and the token-shift and channel-mix states (L, batch, d) in
     ``cfg.dtype``; no KV cache, so no length limit.  zamba2: per layer the
@@ -193,7 +235,7 @@ def decode_step(params, cfg: ModelConfig, cache, token):
                                           layer_windows(cfg))):
             h = h + _attend(rms_norm(h, lp["norm1"]), lp["attn"], cfg, cache,
                             i, positions, win)
-            h = h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
+            h = h + _ffn(rms_norm(h, lp["norm2"]), lp, cfg)[0]
     cache["len"] = pos + 1
     return _logits(params, cfg, h), cache
 

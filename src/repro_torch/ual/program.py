@@ -8,10 +8,12 @@ content-hashable: ``Program.digest`` is a stable SHA-256 over the canonical
 structure, so identical kernels hash identically across processes — the
 mapping cache (see ``ual.cache``) keys on it.
 
-Constructors cover two frontends:
+Constructors cover the three frontends:
 
   * ``Program.from_builder``  — a ``DFGBuilder`` (annotated-kernel DSL),
-  * ``Program.from_kernel``   — a ``core.kernel_lib`` entry by name.
+  * ``Program.from_kernel``   — a ``core.kernel_lib`` entry by name,
+  * ``Program.from_function`` — a pure scalar function of torch ops traced
+    via ``trace_into`` into an elementwise loop body.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import numpy as np
 
 from repro_torch.core.dfg import (DFG, DataLayout, DFGBuilder, apply_layout,
                                   flat_memory, flat_memory_batch, plan_layout,
-                                  unflatten_memory, unflatten_memory_batch)
+                                  trace_into, unflatten_memory,
+                                  unflatten_memory_batch)
 
 
 @dataclass(frozen=True)
@@ -166,3 +169,32 @@ class Program:
         dfg, make_mem, n_iters = KERNELS[name]()
         return Program.from_dfg(dfg, n_iters, make_mem=make_mem,
                                 n_banks=n_banks, bank_words=bank_words)
+
+    @staticmethod
+    def from_function(fn: Callable, inputs: Dict[str, int], *,
+                      outputs: Sequence[str] = ("out",),
+                      n_iters: Optional[int] = None,
+                      name: str = "traced") -> "Program":
+        """Trace a pure scalar int32 function into an elementwise loop body.
+
+        ``fn`` takes one scalar per entry of ``inputs`` (in dict order) and
+        returns one scalar per entry of ``outputs``; iteration ``i`` applies
+        it to element ``i`` of each input array.  ``fn`` is written with
+        Python's operators and torch ops (``trace_into``), not ``jnp``.
+        """
+        b = DFGBuilder(name)
+        for arr, ln in inputs.items():
+            b.array(arr, ln)
+        length = min(inputs.values())
+        for arr in outputs:
+            b.array(arr, length, output=True)
+        i = b.counter()
+        vals = [b.load(arr, i) for arr in inputs]
+        outs = trace_into(b, fn, vals)
+        if len(outs) != len(outputs):
+            raise ValueError(f"{name}: fn returned {len(outs)} values for "
+                             f"{len(outputs)} declared outputs")
+        for arr, v in zip(outputs, outs):
+            b.store(arr, i, v)
+        return Program.from_builder(b, n_iters if n_iters is not None
+                                    else length)

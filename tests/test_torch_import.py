@@ -33,7 +33,9 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "import repro_torch.kernels.mamba2_ssd.ops\n"
         "import repro_torch.kernels.rwkv6.ops\n"
         "import repro_torch.models.lm, repro_torch.models.rwkv6\n"
-        "import repro_torch.configs\n"
+        "import repro_torch.models.moe, repro_torch.core.lisa\n"
+        "import repro_torch.core.dfg, repro_torch.core.kernel_lib\n"
+        "import repro_torch.configs, repro_torch.configs.shapes\n"
         "import repro_torch.serve.serve_step, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
