@@ -175,22 +175,29 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core FLOP/s, and
 #: f32 FLOP/s without the tensor cores (the f32 kernel runs in full f32)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-#: (name, B, S, H, KV, D, dtype, causal, window) of the flash-attention
-#: phase: qwen3-8b's attention at B = 1 and at the main path's B = 2 (in
-#: bf16 and f32), danube-1.8b's width and 4096-token window at S = 8192, an
-#: encoder's full attention, a ragged length, f32 at D = 64, zamba2's
-#: shared attention (MHA, D = 80) and deepseek-moe-16b's (MHA, 16 heads of
-#: 128) at their prefill shapes
+#: (name, B, S, H, KV, D, dtype, causal, window, prefix_len) of the
+#: flash-attention phase: qwen3-8b's attention at B = 1 and at the main
+#: path's B = 2 (in bf16 and f32), danube-1.8b's width and 4096-token window
+#: at S = 8192, an encoder's full attention, a ragged length, f32 at D = 64,
+#: zamba2's shared attention (MHA, D = 80), deepseek-moe-16b's (MHA, 16
+#: heads of 128), paligemma-3b's (MQA, 8 heads of 256, prefix-LM over its
+#: 256 image tokens before 2048 text tokens; bf16 and f32) and
+#: hubert-xlarge's (MHA, 16 heads of 80, full) at their prefill shapes, and
+#: a prefix that ends inside a tile at a ragged length
 FLASH_CASES = [
-    ("qwen3-8b", 1, 2048, 32, 8, 128, "bfloat16", True, 0),
-    ("qwen3-8b-prefill", 2, 2048, 32, 8, 128, "bfloat16", True, 0),
-    ("qwen3-8b-prefill-f32", 2, 2048, 32, 8, 128, "float32", True, 0),
-    ("danube-window", 1, 8192, 32, 8, 80, "bfloat16", True, 4096),
-    ("non-causal", 1, 1024, 32, 8, 128, "bfloat16", False, 0),
-    ("ragged", 1, 200, 32, 8, 128, "bfloat16", True, 0),
-    ("f32-d64", 2, 512, 8, 2, 64, "float32", True, 0),
-    ("zamba2-prefill", 2, 2048, 32, 32, 80, "bfloat16", True, 0),
-    ("deepseek-moe-prefill", 2, 2048, 16, 16, 128, "bfloat16", True, 0),
+    ("qwen3-8b", 1, 2048, 32, 8, 128, "bfloat16", True, 0, 0),
+    ("qwen3-8b-prefill", 2, 2048, 32, 8, 128, "bfloat16", True, 0, 0),
+    ("qwen3-8b-prefill-f32", 2, 2048, 32, 8, 128, "float32", True, 0, 0),
+    ("danube-window", 1, 8192, 32, 8, 80, "bfloat16", True, 4096, 0),
+    ("non-causal", 1, 1024, 32, 8, 128, "bfloat16", False, 0, 0),
+    ("ragged", 1, 200, 32, 8, 128, "bfloat16", True, 0, 0),
+    ("f32-d64", 2, 512, 8, 2, 64, "float32", True, 0, 0),
+    ("zamba2-prefill", 2, 2048, 32, 32, 80, "bfloat16", True, 0, 0),
+    ("deepseek-moe-prefill", 2, 2048, 16, 16, 128, "bfloat16", True, 0, 0),
+    ("paligemma-prefill", 2, 2304, 8, 1, 256, "bfloat16", True, 0, 256),
+    ("paligemma-prefill-f32", 2, 2304, 8, 1, 256, "float32", True, 0, 256),
+    ("hubert-prefill", 2, 2048, 16, 16, 80, "bfloat16", False, 0, 0),
+    ("ragged-prefix", 1, 300, 8, 2, 128, "bfloat16", True, 0, 100),
 ]
 #: a float kernel (flash_attention, mamba2_ssd, rwkv6) against its plain
 #: version, per element |got - want| <= atol + rtol * |want|.  f32: the
@@ -230,14 +237,20 @@ WKV_CASES = [
     ("rwkv6-slow-decay", 2, 2048, 32, 64, "bfloat16", "slow"),
 ]
 #: the serving phases: each model at full width, B = 2 prompts of 2048
-#: tokens, 4 requests x 16 new tokens
-LM_ARCHS = ("qwen3-8b", "zamba2-2.7b", "rwkv6-1.6b", "deepseek-moe-16b")
+#: tokens (paligemma's behind PREFILL_IMAGE image tokens; hubert's 2048
+#: frames of features), 4 requests x 16 new tokens (hubert: none, an
+#: encoder)
+LM_ARCHS = ("qwen3-8b", "zamba2-2.7b", "rwkv6-1.6b", "deepseek-moe-16b",
+            "paligemma-3b", "hubert-xlarge")
 #: depth of the f32 checks where an f32 copy of the whole model does not fit
 #: beside the bf16 one: deepseek-moe-16b's 16.7 B parameters are 33 GB in
 #: bf16 and would be 67 GB more in f32 on an 80 GB card; its first 8 layers
 #: in f32 are 19 GB
 F32_LAYERS = {"deepseek-moe-16b": 8}
 PREFILL_B, PREFILL_S = 2, 2048
+#: paligemma-3b's image prefix: its published n_prefix_tokens (224 px
+#: images in 14 px patches)
+PREFILL_IMAGE = 256
 SERVE_REQUESTS, SERVE_NEW = 4, 16
 #: the serving profiles' kernel groups: the three kernels, and cuBLAS's
 #: matrix products (its Hopper kernels are named nvjet / sm90_xmma)
@@ -475,12 +488,13 @@ def build_all() -> dict:
 def ptxas_line(line: str) -> str:
     """A ptxas resource line, or for an entry function its kernel's name
     and template arguments (cgra_exec's <state shared, tables shared>, the
-    bf16 WKV form's <value columns>)."""
+    bf16 WKV form's <value columns>, the flash forms' <padded head>)."""
     head = re.search(r"Compiling entry function '(\S+)'", line)
     if not head:
         return line.strip()
     args = re.search(r"ILb([01])ELb([01])E", head.group(1))
-    cols = re.search(r"wkv6_kernel_wgmmaILi(\d+)EE", head.group(1))
+    cols = re.search(r"(?:wkv6_kernel_wgmma|attn_kernel(?:_wgmma)?)ILi(\d+)EE",
+                     head.group(1))
     form = (f"<{args.group(1)},{args.group(2)}>" if args
             else f"<{cols.group(1)}>" if cols else "")
     return f"entry {kernel_name(head.group(1))}{form}"
@@ -1421,14 +1435,17 @@ def traced_phase(dev, rng) -> int:
     return launches
 
 
-def attention_bound(B, Sq, Skv, H, KV, D, dtype, causal, window):
+def attention_bound(B, Sq, Skv, H, KV, D, dtype, causal, window,
+                    prefix_len=0):
     """Least time for one attention call: 4 * D flops per (query, key)
-    pair the mask keeps, over the peak rate of ``dtype``, against q, k, v
-    read once and the output written once over HBM's rate."""
+    pair the mask keeps (a causal query also sees the keys before
+    ``prefix_len``), over the peak rate of ``dtype``, against q, k, v read
+    once and the output written once over HBM's rate."""
     import torch
     q = torch.arange(Sq, dtype=torch.int64)
     lo = (q - window + 1).clamp_min(0) if window > 0 else torch.zeros_like(q)
-    hi = q.clamp_max(Skv - 1) if causal else torch.full_like(q, Skv - 1)
+    hi = (q.clamp_min(prefix_len - 1).clamp_max(Skv - 1) if causal
+          else torch.full_like(q, Skv - 1))
     pairs = int((hi - lo + 1).clamp_min(0).sum())
     flops = 4 * D * pairs * B * H
     item = 2 if dtype == "bfloat16" else 4
@@ -1438,19 +1455,22 @@ def attention_bound(B, Sq, Skv, H, KV, D, dtype, causal, window):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def sdpa(q, k, v, causal, window):
+def sdpa(q, k, v, causal, window, prefix_len=0):
     """One PyTorch call computing the same attention (the yardstick only:
-    the port never calls it)."""
+    the port never calls it); a window or a prefix goes in as an explicit
+    boolean mask."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if window > 0:
+    if window > 0 or (causal and prefix_len > 0):
         Sq, Skv = q.shape[1], k.shape[1]
         qp = torch.arange(Sq, device=q.device)[:, None]
         kp = torch.arange(Skv, device=q.device)[None, :]
-        keep = (qp - kp) < window
+        keep = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+        if window > 0:
+            keep &= (qp - kp) < window
         if causal:
-            keep &= qp >= kp
+            keep &= (qp >= kp) | (kp < prefix_len)
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
                                               enable_gqa=True)
     return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -1498,7 +1518,7 @@ def check_case(phase: str, name: str, dt: str, run_kernel, run_plain,
     return row
 
 
-def dropped_tile(q, k, v, causal: bool, window: int):
+def dropped_tile(q, k, v, causal: bool, window: int, prefix_len: int = 0):
     """What a faulty kernel returns for the last FAULT_ROWS query rows if
     its walk skips the first KV tile of FAULT_TILE keys those rows see: the
     plain arithmetic in f32 with those keys masked, in q's dtype."""
@@ -1512,7 +1532,7 @@ def dropped_tile(q, k, v, causal: bool, window: int):
     kp = torch.arange(S, device=q.device)[None, :]
     keep = torch.ones((FAULT_ROWS, S), dtype=torch.bool, device=q.device)
     if causal:
-        keep &= qp >= kp
+        keep &= (qp >= kp) | (kp < prefix_len)
     if window > 0:
         keep &= (qp - kp) < window
     first = max(0, S - FAULT_ROWS - window + 1) if window > 0 else 0
@@ -1556,9 +1576,11 @@ FLASH_FORMS = {
 def flash_phases(dev, sass) -> dict:
     """The flash-attention kernel against its plain version on every case,
     with the planted fault of ``dropped_tile`` held to the same bound (it
-    must fail it), the kernel's time, the plain version's, SDPA's and the
-    bound.  Returns the kernel's summary entry, less the main path's
-    launches; it names both forms (``FLASH_FORMS``, ``kernel_forms``)."""
+    must fail it), and on a case with a prefix the prefix-blind answer too
+    (plain causal attention, which differs from row 0 on), the kernel's
+    time, the plain version's, SDPA's and the bound.  Returns the kernel's
+    summary entry, less the main path's launches; it names both forms
+    (``FLASH_FORMS``, ``kernel_forms``)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
@@ -1567,26 +1589,31 @@ def flash_phases(dev, sass) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = {}
     max_err = 0.0
-    for name, B, S, H, KV, D, dt, causal, window in FLASH_CASES:
+    for name, B, S, H, KV, D, dt, causal, window, prefix in FLASH_CASES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+        faults = {"dropped_tile": lambda: (
+            dropped_tile(q, k, v, causal, window, prefix), S - FAULT_ROWS)}
+        if prefix:
+            faults["prefix_blind"] = lambda: (flash_attention_torch(
+                q, k, v, causal=causal, window=window), 0)
         res = check_case(
             "flash", name, dt,
             lambda: ops.flash_attention(q, k, v, causal=causal,
-                                        window=window),
+                                        window=window, prefix_len=prefix),
             lambda: flash_attention_torch(q, k, v, causal=causal,
-                                          window=window),
-            {"dropped_tile": lambda: (dropped_tile(q, k, v, causal, window),
-                                      S - FAULT_ROWS)})
+                                          window=window, prefix_len=prefix),
+            faults)
         max_err = max(max_err, res["max_abs_err"])
-        lib_ms, _ = time_ms(lambda: sdpa(q, k, v, causal, window), reps=10,
-                            warmup=2)
+        lib_ms, _ = time_ms(lambda: sdpa(q, k, v, causal, window, prefix),
+                            reps=10, warmup=2)
         b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, KV, D, dt,
-                                                    causal, window)
+                                                    causal, window, prefix)
         rows[name] = row = {
             "case": name, "B": B, "S": S, "H": H, "KV": KV, "D": D,
-            "dtype": dt, "causal": causal, "window": window, **res,
+            "dtype": dt, "causal": causal, "window": window,
+            "prefix_len": prefix, **res,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "flops": flops, "bytes": nbytes,
             "tflop_s": flops / res["ms"] / 1e9}
@@ -1995,7 +2022,10 @@ def routing_diff(a, b, n_experts: int):
 
 def lm_phases(dev, seed: int, arch: str) -> dict:
     """One model at full width: the main path (``prefill_fn`` on B = 2
-    prompts of 2048 tokens, ``greedy_generate`` for 4 requests) with the
+    prompts of 2048 tokens, paligemma's behind PREFILL_IMAGE image
+    embeddings and hubert's 2048 frames of features;
+    ``greedy_generate`` for 4 requests, but not for hubert, an encoder,
+    and paligemma's with no image, as the reference's) with the
     launches of each kernel checked, the kernel path against the plain path
     and both against the f32 model (all layers, or the first
     ``F32_LAYERS[arch]``), the decode path against prefill, and profiles;
@@ -2034,6 +2064,26 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
         0, cfg.vocab, (PREFILL_B, PREFILL_S)).astype(np.int32)).to(dev)
     prompts = [rng.integers(0, cfg.vocab, rng.integers(4, 12))
                .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    # the model's inputs besides tokens: paligemma's image embeddings and
+    # hubert's frame features (the stub front ends' outputs), normal f32
+    gen_in = torch.Generator(device=dev).manual_seed(seed + 2)
+    batch, fwd_kw, prefix = {"tokens": tokens}, {}, 0
+    if cfg.family == "paligemma":
+        prefix = PREFILL_IMAGE
+        fwd_kw["img_embeds"] = torch.randn(
+            (PREFILL_B, prefix, cfg.d_model), generator=gen_in, device=dev)
+        batch["img_embeds"] = fwd_kw["img_embeds"]
+    elif cfg.family == "hubert":
+        fwd_kw["features"] = torch.randn(
+            (PREFILL_B, PREFILL_S, cfg.d_model), generator=gen_in, device=dev)
+        batch = {"features": fwd_kw["features"]}
+    encoder = cfg.family == "hubert"
+
+    def last_logits(params, cfg):
+        """``forward``'s last-position logits on this phase's inputs."""
+        if encoder:
+            return forward(params, cfg, **fwd_kw)[0][:, -1]
+        return forward(params, cfg, tokens, **fwd_kw)[0][:, -1]
 
     # ---- the main path, through the user's entry points ------------------
     t0 = time.perf_counter()
@@ -2045,7 +2095,6 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prefill = prefill_fn(cfg)
-    batch = {"tokens": tokens}
     torch.cuda.reset_peak_memory_stats()
     for mod in kernels.values():
         mod.reset_launches()
@@ -2058,7 +2107,7 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
     prefill_launches = {k: mod.launches() for k, mod in kernels.items()}
     peak_prefill = torch.cuda.max_memory_allocated()
     serve_walls, outs = [], []
-    for _ in range(2):                       # cold, then warm
+    for _ in range(0 if encoder else 2):     # cold, then warm
         t0 = time.perf_counter()
         outs.append(greedy_generate(params, cfg, prompts, SERVE_NEW,
                                     max_len=64 + SERVE_NEW))
@@ -2084,24 +2133,24 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
     # checked, and the kernels' bf16 arithmetic is held per call above
     t0 = time.perf_counter()
     with plain_kernels():
-        plain = forward(params, cfg, tokens)[0][:, -1]
+        plain = last_logits(params, cfg)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     n32 = F32_LAYERS.get(arch, cfg.n_layers)
     cut_cfg = cfg.scaled(n_layers=n32)
     cut_params = {**params, "layers": params["layers"][:n32]}
     if n32 < cfg.n_layers:
-        last_c = forward(cut_params, cut_cfg, tokens)[0][:, -1]
+        last_c = last_logits(cut_params, cut_cfg)
         with plain_kernels():
-            plain_c = forward(cut_params, cut_cfg, tokens)[0][:, -1]
+            plain_c = last_logits(cut_params, cut_cfg)
     else:
         last_c, plain_c = last, plain
     cfg32 = cut_cfg.scaled(dtype=torch.float32)
     params32 = to_f32(cut_params)             # the same weights, in f32
     with routing_log() as kern_routes:
-        kern32 = forward(params32, cfg32, tokens)[0][:, -1]
+        kern32 = last_logits(params32, cfg32)
     with plain_kernels(), routing_log() as plain_routes:
-        plain32 = forward(params32, cfg32, tokens)[0][:, -1]
+        plain32 = last_logits(params32, cfg32)
     err = {"kernel_vs_plain": rel_l2(last, plain),
            "kernel_vs_f32": rel_l2(last_c, plain32),
            "plain_vs_f32": rel_l2(plain_c, plain32),
@@ -2130,10 +2179,12 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
             "f32_routing_decisions": n32 * T * cfg.top_k}
         del routes
     emit("lm_prefill", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
-         B=PREFILL_B, S=PREFILL_S, params=cfg.param_count(),
+         B=PREFILL_B, S=PREFILL_S, prefix_len=prefix,
+         inputs=("features" if encoder else "tokens"),
+         params=cfg.param_count(),
          param_bytes=param_bytes(params), init_s=init_s,
          wall_ms_cold=walls[0], wall_ms=walls[1],
-         tokens_per_s=PREFILL_B * PREFILL_S / walls[1] * 1e3,
+         tokens_per_s=PREFILL_B * (PREFILL_S + prefix) / walls[1] * 1e3,
          plain_path_wall_ms=plain_ms, launches=prefill_launches,
          launches_per_prefill={k: n // 2 for k, n in prefill_launches.items()},
          peak_memory_bytes=peak_prefill, f32_layers=n32, rel_l2=err,
@@ -2142,6 +2193,15 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
           f"{arch}: f32 {n32}-layer prefill: kernel vs plain rel L2 "
           f"{err['f32_kernel_vs_f32_plain']} (moe: {moe_info})")
     del plain, kern32, plain32, last_c, plain_c, kern_routes, plain_routes
+
+    # ---- where the prefill's time goes ------------------------------------
+    emit("lm_breakdown", arch=cfg.name, step="prefill", B=PREFILL_B,
+         S=PREFILL_S, prefix_len=prefix,
+         **device_profile(lambda: prefill(params, batch), LM_GROUPS))
+    if encoder:                              # no decode
+        del params, cut_params, params32
+        torch.cuda.empty_cache()
+        return main_launches
 
     # ---- serving ------------------------------------------------------------
     toks = outs[1]
@@ -2198,10 +2258,7 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
           f"{arch}: f32 {n32}-layer decode vs prefill rel L2 "
           f"{err['f32_decode_vs_f32_prefill']}")
 
-    # ---- where the time goes --------------------------------------------------
-    emit("lm_breakdown", arch=cfg.name, step="prefill", B=PREFILL_B,
-         S=PREFILL_S, **device_profile(lambda: prefill(params, batch),
-                                       LM_GROUPS))
+    # ---- where decode's time goes -------------------------------------------
     decode = decode_fn(cfg)
     cache = init_cache(cfg, SERVE_REQUESTS, 64, device=dev)
     tok = torch.zeros((SERVE_REQUESTS, 1), dtype=torch.int32, device=dev)

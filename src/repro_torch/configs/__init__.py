@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves through ``get_config``.
 
-The dense architectures, the MoE architectures (deepseek-moe-16b,
-arctic-480b), rwkv6-1.6b and zamba2-2.7b of the JAX package's registry, at
-their published widths; hubert and paligemma come with their ports
-(ROADMAP A9).  ``smoke_config`` gives a reduced same-family configuration
-for CPU tests, as in the reference.
+Every architecture of the JAX package's registry, at its published
+widths: the dense ones, the MoE ones (deepseek-moe-16b, arctic-480b),
+rwkv6-1.6b, zamba2-2.7b, the audio encoder hubert-xlarge and the
+image-prefix LM paligemma-3b.  ``smoke_config`` gives a reduced
+same-family configuration for CPU tests, as in the reference.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek
 from repro_torch.configs.gemma3_27b import CONFIG as _gemma3
 from repro_torch.configs.h2o_danube3_4b import CONFIG as _danube3
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as _danube18
+from repro_torch.configs.hubert_xlarge import CONFIG as _hubert
+from repro_torch.configs.paligemma_3b import CONFIG as _paligemma
 from repro_torch.configs.qwen3_8b import CONFIG as _qwen3
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
 from repro_torch.configs.zamba2_2_7b import CONFIG as _zamba2
@@ -23,7 +25,7 @@ from repro_torch.models.common import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in (_deepseek, _arctic, _gemma3, _qwen3, _danube3,
-                        _danube18, _rwkv6, _zamba2)
+                        _danube18, _hubert, _paligemma, _rwkv6, _zamba2)
 }
 
 FAMILIES = {name: c.family for name, c in ARCHS.items()}
@@ -36,9 +38,8 @@ def get_config(name: str) -> ModelConfig:
 
 
 def smoke_config(name: str) -> ModelConfig:
-    """Reduced same-family config: tiny layers/width/experts/vocab (the
-    reference's reductions for the dense, moe, rwkv6 and zamba2
-    families)."""
+    """Reduced same-family config: tiny layers/width/experts/vocab/image
+    prefix (the reference's reductions)."""
     c = get_config(name)
     kw = dict(
         n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=256,
@@ -60,4 +61,6 @@ def smoke_config(name: str) -> ModelConfig:
         kw["sliding_window"] = 8
     if c.global_every:
         kw["global_every"] = 2
+    if c.n_prefix_tokens:
+        kw["n_prefix_tokens"] = 4
     return dataclasses.replace(c, **kw)

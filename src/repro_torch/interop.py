@@ -118,7 +118,9 @@ def lm_params_from_state(state: Dict[str, object], cfg: ModelConfig,
     ``(L, ...)``.  rwkv6: ``rwkv`` stacked ``(L, ...)``.  zamba2: ``mamba``
     stacked ``(L, ...)``, and ``shared_attn``,
     ``shared_mlp``, ``shared_norm1``, ``shared_norm2`` stacked ``(1, ...)``,
-    which become ``params["shared"]``."""
+    which become ``params["shared"]``.  hubert and paligemma: the dense
+    layers, and the front end's unstacked ``frontend_proj`` and
+    ``mask_embed`` (audio) or ``img_proj`` (image)."""
     check_family(cfg)
     L = cfg.n_layers
 
@@ -139,7 +141,8 @@ def lm_params_from_state(state: Dict[str, object], cfg: ModelConfig,
                          f"the config has {L}")
     params: Dict[str, object] = {
         name: _tensor(state[name], device)
-        for name in ("embed", "final_norm", "lm_head") if name in state}
+        for name in ("embed", "final_norm", "lm_head", "frontend_proj",
+                     "mask_embed", "img_proj") if name in state}
     if cfg.family == "rwkv6":
         params["layers"] = [layer(state["rwkv"], i) for i in range(L)]
         return params

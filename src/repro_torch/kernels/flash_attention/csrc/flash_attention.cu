@@ -11,12 +11,15 @@
 // G = H / KV; q is cast to f32 and then scaled by 1/sqrt(D); scores, the
 // running max m, the running sum l and the output accumulator are f32; a
 // key at absolute position kp is seen by the query at absolute position qp
-// iff kp < Skv, and (causal) qp >= kp, and (window > 0) qp - kp < window,
-// with no Skv - Sq offset; masked scores are NEG_INF = -1e30, finite, as in
-// the TPU kernel (with -INFINITY a tile in which a row sees no key gives
-// exp(-inf - -inf) = NaN; with -1e30 it gives p = 1, which the later
-// corr = exp(-1e30 - m) = 0 wipes out); the output is acc / max(l, 1e-30)
-// in q's dtype (f32 or bf16, rounded to nearest even).
+// iff kp < Skv, and (causal) qp >= kp or kp < prefix_len (the prefix-LM
+// mask of the reference's blockwise_attention, which its TPU kernel lacks:
+// bidirectional over the first prefix_len keys), and (window > 0)
+// qp - kp < window, with no Skv - Sq offset; masked scores are
+// NEG_INF = -1e30, finite, as in the TPU kernel (with -INFINITY a tile in
+// which a row sees no key gives exp(-inf - -inf) = NaN; with -1e30 it gives
+// p = 1, which the later corr = exp(-1e30 - m) = 0 wipes out); the output
+// is acc / max(l, 1e-30) in q's dtype (f32 or bf16, rounded to nearest
+// even).
 //
 // The f32 form.  What bounds it on an H100 SXM (NVIDIA data sheet):
 // operations, 4 * D flops per (query, key) pair that the mask keeps over
@@ -27,12 +30,13 @@
 // What the design does about it: it is simple and right, on the CUDA
 // cores.  One block of 128 threads owns kBQ = 64 query rows of one
 // (batch, head) and walks the KV tiles of kBK = 32 keys that its rows can
-// see: tiles after the causal diagonal and tiles before the window are
-// skipped, which halves the causal work (a skipped tile contributes exactly
-// 0 to every row that sees some key).  A row that sees no key at all (only
-// when window > 0 and Sq - Skv >= window) gets the mean of V over every key,
-// padding included, from the TPU kernel, and something else here; ops.py
-// refuses such calls, and the serving path never makes one.  The query tile
+// see: tiles after the causal diagonal and the prefix, and tiles before the
+// window are skipped, which halves the causal work (a skipped tile
+// contributes exactly 0 to every row that sees some key).  A row that sees
+// no key at all (only when window > 0 and Sq - Skv >= window) gets the mean
+// of V over every key, padding included, from the TPU kernel, and
+// something else here; ops.py refuses such calls, and the serving path
+// never makes one.  The query tile
 // (scaled, transposed) stays in shared memory for the whole walk; each
 // KV tile is staged into shared memory, K transposed so that a
 // thread's four keys are one float4; each thread holds a 4 x 4 block of
@@ -49,7 +53,8 @@
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int Sq, int Skv, int H,
                                  int KV, int D, int causal, int window,
-                                 float scale, cudaStream_t s);
+                                 int prefix_len, float scale,
+                                 cudaStream_t s);
 
 namespace {
 
@@ -72,7 +77,8 @@ template <int DP>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-            int H, int KV, int D, int causal, int window, float scale) {
+            int H, int KV, int D, int causal, int window, int prefix_len,
+            float scale) {
     extern __shared__ float4 smem4[];
     float* Qt = reinterpret_cast<float*>(smem4);
     float* Kt = Qt + DP * kLQ;
@@ -118,12 +124,13 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int n = 0; n < NC * 4; ++n) acc[i][n] = 0.f;
     }
 
-    // the KV tiles this block's rows can see
+    // the KV tiles this block's rows can see: up to the diagonal, and every
+    // tile that holds a key of the prefix
     const int n_kv = (Skv + kBK - 1) / kBK;
     int kv_hi = n_kv;
     if (causal) {
         const int q_last = min(q0 + kBQ, Sq) - 1;
-        kv_hi = min(n_kv, q_last / kBK + 1);
+        kv_hi = min(n_kv, max(q_last / kBK + 1, (prefix_len + kBK - 1) / kBK));
     }
     int kv_lo = 0;
     if (window > 0 && q0 - window + 1 > 0) kv_lo = (q0 - window + 1) / kBK;
@@ -175,7 +182,7 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
             for (int j = 0; j < 4; ++j) {
                 const int kp = k0 + tx * 4 + j;
                 bool keep = kp < Skv;
-                if (causal) keep = keep && qp >= kp;
+                if (causal) keep = keep && (qp >= kp || kp < prefix_len);
                 if (window > 0) keep = keep && (qp - kp) < window;
                 if (!keep) s[i][j] = kNegInf;
                 rmax = fmaxf(rmax, s[i][j]);
@@ -248,7 +255,7 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int KV, int D, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int prefix_len, float scale, cudaStream_t stream) {
     const size_t smem = sizeof(float) * smem_floats<DP>();
     cudaError_t err = cudaFuncSetAttribute(
         attn_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -258,22 +265,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     attn_kernel<DP><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
-        D, causal, window, scale);
+        D, causal, window, prefix_len, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int Sq, int Skv, int H, int KV, int D, int causal, int window,
-             float scale, cudaStream_t s) {
+             int prefix_len, float scale, cudaStream_t s) {
     switch ((D + 31) / 32) {
-        case 1: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 2: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 3: return launch<96>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 4: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 5: return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 6: return launch<192>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 7: return launch<224>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 8: return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 1: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 2: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 3: return launch<96>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 4: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 5: return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 6: return launch<192>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 7: return launch<224>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 8: return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -281,7 +288,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype: 0 = float32 (the form above), 1 = bfloat16 (the tensor-core form).
-// All tensors contiguous, on the device of the current context; the output
+// prefix_len >= 0 (0: no prefix; read only when causal).  All tensors
+// contiguous, on the device of the current context; the output
 // is written in q's dtype.  Returns the CUDA error of the launch (0 when it
 // was accepted), or -(a CUresult) when the bf16 form cannot make a tensor
 // map.
@@ -289,13 +297,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int B, int Sq, int Skv, int H, int KV,
                                       int D, int causal, int window,
-                                      float scale, void* stream) {
+                                      int prefix_len, float scale,
+                                      void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
         return dispatch(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window,
-                        scale, s);
+                        prefix_len, scale, s);
     if (dtype == 1)
         return flash_attention_wgmma_launch(q, k, v, o, B, Sq, Skv, H, KV, D,
-                                            causal, window, scale, s);
+                                            causal, window, prefix_len, scale,
+                                            s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,12 +7,12 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // _attn_kernel for bf16.  The function is the one flash_attention.cu's
 // header states: head h reads KV head h / (H / KV); the key at kp is seen by
-// the query at qp iff kp < Skv, and (causal) qp >= kp, and (window > 0)
-// qp - kp < window, with no Skv - Sq offset; m, l and the accumulator are
-// f32; masked scores are the finite -1e30; the output is acc / max(l, 1e-30)
-// rounded to nearest even.  One rounding differs: the product of two bf16
-// values is exact in f32, so the score is (q . k) * scale, where the TPU
-// kernel scales q first.
+// the query at qp iff kp < Skv, and (causal) qp >= kp or kp < prefix_len,
+// and (window > 0) qp - kp < window, with no Skv - Sq offset; m, l and the
+// accumulator are f32; masked scores are the finite -1e30; the output is
+// acc / max(l, 1e-30) rounded to nearest even.  One rounding differs: the
+// product of two bf16 values is exact in f32, so the score is
+// (q . k) * scale, where the TPU kernel scales q first.
 //
 // What bounds it on an H100 SXM (NVIDIA data sheet): operations.  The
 // algorithm needs 4 D flops a kept (query, key) pair: at qwen3-8b's prefill
@@ -44,9 +44,10 @@
 //   tile i + 2 is loaded once both warpgroups are done with tile i, while
 //   tile i + 1 is in flight.  TMA fills rows past Sq or Skv and columns past
 //   D with zeros, which change no score.
-// - Tiles outside the causal diagonal or the window are skipped, per block
-//   and then per warpgroup; the mask is applied only on tiles that cross
-//   the diagonal, the window's edge or Skv.
+// - Tiles outside the causal diagonal (and past the prefix) or the window
+//   are skipped, per block and then per warpgroup; the mask is applied only
+//   on tiles that cross the diagonal (and are not wholly inside the
+//   prefix), the window's edge or Skv.
 // - The online softmax runs on the accumulator in registers: a row lives in
 //   four threads (two shuffles), exp2 with scale * log2(e) folded in, m and
 //   the thread's share of l in f32, l reduced once at the end.
@@ -116,7 +117,8 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
                   __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
-                  int KV, int D, int causal, int window, float scale_log2) {
+                  int KV, int D, int causal, int window, int prefix_len,
+                  float scale_log2) {
     using T = Tiles<DP>;
     constexpr int kBK = T::kBK;
     extern __shared__ uint8_t smem_raw[];
@@ -136,10 +138,13 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int qw0 = q0 + wg * 64;                 // this warpgroup's rows
     const int row0 = (tid % 128) / 32 * 16 + lane / 4;   // and + 8
 
-    // the KV tiles this block's rows can see
+    // the KV tiles this block's rows can see: up to the diagonal, and every
+    // tile that holds a key of the prefix
     const int n_kv = (Skv + kBK - 1) / kBK;
     int kv_hi = n_kv;
-    if (causal) kv_hi = min(n_kv, (min(q0 + kRows, Sq) - 1) / kBK + 1);
+    if (causal)
+        kv_hi = min(n_kv, max((min(q0 + kRows, Sq) - 1) / kBK + 1,
+                              (prefix_len + kBK - 1) / kBK));
     int kv_lo = 0;
     if (window > 0 && q0 - window + 1 > 0) kv_lo = (q0 - window + 1) / kBK;
     const int n_tiles = kv_hi - kv_lo;
@@ -168,7 +173,7 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(bar + 8 + 8 * s, (i >> 1) & 1);
         // does this warpgroup see any key of the tile?
         bool live = qw0 < Sq;
-        if (causal) live = live && k0 <= qw0 + 63;
+        if (causal) live = live && (k0 <= qw0 + 63 || k0 < prefix_len);
         if (window > 0) live = live && qw0 - (k0 + kBK - 1) < window;
         if (live) {
             // S = Q K^T
@@ -191,11 +196,13 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
             pin<kBK / 2>(sc);
 
             // scale into log2 units; mask only a tile that crosses the
-            // diagonal, the window's edge or Skv
+            // diagonal and is not wholly inside the prefix, the window's
+            // edge or Skv
 #pragma unroll
             for (int j = 0; j < kBK / 2; ++j) sc[j] *= scale_log2;
             const bool edge = k0 + kBK > Skv
-                              || (causal && k0 + kBK - 1 > qw0)
+                              || (causal && k0 + kBK - 1 > qw0
+                                  && k0 + kBK > prefix_len)
                               || (window > 0 && qw0 + 63 - k0 >= window);
             if (edge) {
 #pragma unroll
@@ -203,7 +210,7 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const int qp = qw0 + row0 + 8 * ((j / 2) % 2);
                     const int kp = k0 + j / 4 * 8 + (lane % 4) * 2 + j % 2;
                     bool keep = kp < Skv;
-                    if (causal) keep = keep && qp >= kp;
+                    if (causal) keep = keep && (qp >= kp || kp < prefix_len);
                     if (window > 0) keep = keep && qp - kp < window;
                     if (!keep) sc[j] = kNegInf;
                 }
@@ -309,7 +316,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int KV, int D, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int prefix_len, float scale, cudaStream_t stream) {
     using T = Tiles<DP>;
     CUtensorMap tq, tk, tv;
     int err = make_map(&tq, q, B, Sq, H, D, kRows);
@@ -323,7 +330,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
     attn_kernel_wgmma<DP><<<grid, kThreads, T::kSmem, stream>>>(
         tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KV, D, causal,
-        window, scale * 1.4426950408889634f);
+        window, prefix_len, scale * 1.4426950408889634f);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -336,24 +343,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int Sq, int Skv, int H,
                                  int KV, int D, int causal, int window,
-                                 float scale, cudaStream_t s) {
+                                 int prefix_len, float scale,
+                                 cudaStream_t s) {
     switch ((D + 15) / 16) {
-        case 1: return launch<16>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 2: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 3: return launch<48>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 4: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 5: return launch<80>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 6: return launch<96>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 7: return launch<112>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 8: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 9: return launch<144>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 10: return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 11: return launch<176>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 12: return launch<192>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 13: return launch<208>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 14: return launch<224>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 15: return launch<240>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-        case 16: return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+        case 1: return launch<16>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 2: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 3: return launch<48>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 4: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 5: return launch<80>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 6: return launch<96>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 7: return launch<112>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 8: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 9: return launch<144>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 10: return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 11: return launch<176>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 12: return launch<192>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 13: return launch<208>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 14: return launch<224>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 15: return launch<240>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 16: return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -1,13 +1,13 @@
 """Public wrapper of the hand-written flash-attention kernel.
 
-``flash_attention(q, k, v, causal=..., window=...)`` launches the kernel
-when the tensors lie on a CUDA device and raises if it cannot: bf16 runs
-the tensor-core form (``csrc/flash_attention_wgmma.cu``: wgmma and TMA),
-f32 the CUDA-core form (``csrc/flash_attention.cu``, whose C entry point
-picks the form by dtype).  Only CPU tensors go to the plain PyTorch version
-(``ref.flash_attention_torch``).  Every launch adds one to the module's
-launch count (``launches()``), so a run can show that it went through the
-kernel.
+``flash_attention(q, k, v, causal=..., window=..., prefix_len=...)``
+launches the kernel when the tensors lie on a CUDA device and raises if it
+cannot: bf16 runs the tensor-core form (``csrc/flash_attention_wgmma.cu``:
+wgmma and TMA), f32 the CUDA-core form (``csrc/flash_attention.cu``, whose
+C entry point picks the form by dtype).  Only CPU tensors go to the plain
+PyTorch version (``ref.flash_attention_torch``).  Every launch adds one to
+the module's launch count (``launches()``), so a run can show that it went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -63,14 +63,16 @@ def _launcher():
     """The library's C entry point, built and loaded once per process."""
     fn = _build.load("flash_attention", SOURCES,
                      {}).flash_attention_launch
-    # q, k, v, o; dtype, B, Sq, Skv, H, KV, D, causal, window; scale; stream
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    # q, k, v, o; dtype, B, Sq, Skv, H, KV, D, causal, window, prefix_len;
+    # scale; stream
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, window: int) -> Tuple[int, int, int, int, int, int]:
+def _check(q, k, v, window: int,
+           prefix_len: int) -> Tuple[int, int, int, int, int, int]:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got "
@@ -95,6 +97,9 @@ def _check(q, k, v, window: int) -> Tuple[int, int, int, int, int, int]:
         raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
     if int(window) < 0:
         raise ValueError(f"window must be >= 0 (0: none), got {window}")
+    if int(prefix_len) < 0:
+        raise ValueError(f"prefix_len must be >= 0 (0: none), got "
+                         f"{prefix_len}")
     if window > 0 and Sq - Skv >= window:
         # rows qp >= Skv - 1 + window see no key: the TPU kernel gives them
         # the mean of V over every key, padding included, which the kernel's
@@ -106,21 +111,25 @@ def _check(q, k, v, window: int) -> Tuple[int, int, int, int, int, int]:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Causal / sliding-window / full GQA attention.
+                    causal: bool = True, window: int = 0,
+                    prefix_len: int = 0) -> torch.Tensor:
+    """Causal / sliding-window / full / prefix-LM GQA attention.
 
     q: (B, Sq, H, D); k/v: (B, Skv, KV, D); f32 or bf16, accumulated in f32;
     returns (B, Sq, H, D) in q's dtype.  ``window`` > 0 keeps keys with
-    ``q_pos - k_pos < window``; positions are absolute and 0-based for both
-    q and k.  A window that leaves a query row no key raises on every
+    ``q_pos - k_pos < window``; ``prefix_len`` > 0 (read only when causal)
+    also keeps every key before it, whatever the query: the reference's
+    prefix-LM mask.  Positions are absolute and 0-based for both q and
+    k.  A window that leaves a query row no key raises on every
     device.  On CUDA tensors this launches the kernel on the current
     stream, without synchronising, or raises; CPU tensors run the plain
     version."""
     global _launches
-    B, Sq, H, D, Skv, KV = _check(q, k, v, window)
+    B, Sq, H, D, Skv, KV = _check(q, k, v, window, prefix_len)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal,
-                                     window=int(window))
+                                     window=int(window),
+                                     prefix_len=int(prefix_len))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -144,7 +153,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  DTYPES[q.dtype], B, Sq, Skv, H, KV, Dk, int(bool(causal)),
-                 int(window), 1.0 / math.sqrt(D), stream)
+                 int(window), int(prefix_len), 1.0 / math.sqrt(D), stream)
     if err < 0:
         raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
                            f"(CUresult {-err}; 1 also when libcuda has no "

@@ -7,7 +7,9 @@ online softmax over KV blocks of ``bk`` keys with f32 statistics and
 accumulator, masked scores set to the finite ``NEG_INF``, padded keys masked
 by the sequence length, and the output divided by ``max(l, 1e-30)``.  The
 tests and the CPU path use it; on the card ``chip_smoke.py`` holds the
-hand-written kernel against it.
+hand-written kernel against it.  Both take ``prefix_len``, the reference's
+prefix-LM mask (``models/layers.py``'s ``_mask_block``): when causal, a key
+before ``prefix_len`` is seen by every query; it is ignored when not causal.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, *, causal=True, window=0):
+def attention_ref(q, k, v, *, causal=True, window=0, prefix_len=0):
     """Plain softmax attention.  q: (B,Sq,H,D); k/v: (B,Skv,KV,D)."""
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
@@ -30,7 +32,7 @@ def attention_ref(q, k, v, *, causal=True, window=0):
     kp = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= qp >= kp
+        mask &= (qp >= kp) | (kp < prefix_len)
     if window > 0:
         mask &= (qp - kp) < window
     s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
@@ -40,7 +42,7 @@ def attention_ref(q, k, v, *, causal=True, window=0):
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
-                          bk: int = 128):
+                          prefix_len: int = 0, bk: int = 128):
     """Blocked online-softmax attention, the TPU kernel's arithmetic.
 
     q: (B, Sq, H, D); k/v: (B, Skv, KV, D), H a multiple of KV.  Query and
@@ -70,7 +72,7 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
         k_pos = j * bk + torch.arange(bk, device=q.device)[None, :]
         mask = k_pos < Skv
         if causal:
-            mask = mask & (q_pos >= k_pos)
+            mask = mask & ((q_pos >= k_pos) | (k_pos < prefix_len))
         if window > 0:
             mask = mask & ((q_pos - k_pos) < window)
         s = torch.where(mask, s, NEG_INF)

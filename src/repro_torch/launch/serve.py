@@ -3,10 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \
         --device cpu --requests 16 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b
 
 Requests arrive with different prompt lengths, are left-padded into a
 batch, run through the decode path token by token (which keeps the cache
-semantics the same for every family), then decoded greedily.  Runs on the
+semantics the same for every family), then decoded greedily.  paligemma
+decodes text prompts with no image, as the reference does; hubert, an
+encoder, has no decode path and is refused (it encodes through
+``serve_step.prefill_fn``).  Runs on the
 card unless ``--device cpu`` is given; a model whose weights do not fit the
 card (arctic-480b's 960 GB in bf16 on one H100) is refused before any
 weight is made.

@@ -9,7 +9,8 @@ the port keeps one dict per layer in ``params["layers"]`` and loops over
 them in Python.  The layout, besides ``embed``, ``final_norm`` (and
 ``lm_head`` when untied):
 
-  dense   ``layers[i]`` = {``attn``, ``mlp``, ``norm1``, ``norm2``}
+  dense   ``layers[i]`` = {``attn``, ``mlp``, ``norm1``, ``norm2``}; the
+          hubert and paligemma families have the same layers
   moe     ``layers[i]`` = {``attn``, ``moe``, ``norm1``, ``norm2``}; ``moe`` =
           {``router`` (d, E) f32, ``we_gate``/``we_up`` (E, d, f),
           ``we_down`` (E, f, d), the shared experts ``ws_gate``/``ws_up``
@@ -24,8 +25,9 @@ them in Python.  The layout, besides ``embed``, ``final_norm`` (and
           ``shared_attn_every`` layers, {``attn``, ``mlp``, ``norm1``,
           ``norm2``} (the reference's ``shared_*`` entries, unstacked)
 
-The dense, moe, rwkv6 and zamba2 families are ported; the others raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+and, by the config's ``frontend``: ``audio`` (hubert) adds
+``frontend_proj`` (d, d) and ``mask_embed`` (d,), ``image`` (paligemma)
+adds ``img_proj`` (d, d).  Every family of the reference is ported.
 """
 from __future__ import annotations
 
@@ -36,23 +38,15 @@ from typing import Any, Dict
 
 import torch
 
-#: families the port does not run yet -> the ROADMAP item that brings them
-UNPORTED_FAMILIES = {
-    "hubert": "ROADMAP A9 (the audio front end)",
-    "paligemma": "ROADMAP A9 (the image front end, prefix-LM attention)",
-}
+#: the model families, as the reference names them
+FAMILIES = ("dense", "moe", "rwkv6", "zamba2", "hubert", "paligemma")
 
 
 def check_family(cfg: "ModelConfig") -> None:
-    """Raise unless the port runs ``cfg``'s family (``dense``, ``moe``,
-    ``rwkv6``, ``zamba2``)."""
-    if cfg.family in ("dense", "moe", "rwkv6", "zamba2"):
-        return
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{UNPORTED_FAMILIES[cfg.family]}")
-    raise ValueError(f"unknown family {cfg.family}")
+    """Raise ``ValueError`` unless ``cfg``'s family is one of
+    ``FAMILIES``."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 @dataclass(frozen=True)
@@ -276,7 +270,8 @@ def init_rwkv6(gen, c: ModelConfig, device, dtype) -> Dict:
 def init_params(gen: torch.Generator, c: ModelConfig, device) -> Dict:
     """Random parameters, drawn from ``gen`` (a generator on ``device``)
     with the reference's shapes and scales: normal times 1/sqrt(fan_in),
-    the embedding and the MoE router times 0.02 (the router in f32), the
+    the embedding, hubert's ``mask_embed`` and the MoE router times 0.02
+    (the router in f32), the
     conv, rwkv6's mixes and ``u`` times 0.5,
     its ``ww`` times 0.01, norms and ``D`` set to ones, ``w_bias`` to -5,
     ``A_log`` and ``dt_bias`` to f32 zeros.  Weights are made one
@@ -315,6 +310,11 @@ def init_params(gen: torch.Generator, c: ModelConfig, device) -> Dict:
         params["shared"] = block(shared)
     else:
         params["layers"] = [block(c) for _ in range(c.n_layers)]
+    if c.frontend == "audio":
+        params["frontend_proj"] = _dense(gen, (d, d), device, dtype)
+        params["mask_embed"] = _dense(gen, (d,), device, dtype, scale=0.02)
+    if c.frontend == "image":
+        params["img_proj"] = _dense(gen, (d, d), device, dtype)
     return params
 
 

@@ -1,5 +1,6 @@
 """Shared transformer layers: RMSNorm, RoPE, GQA attention (full / sliding
-window), gated MLPs (the JAX package's ``models/layers.py``, in PyTorch).
+window / prefix-LM), gated MLPs (the JAX package's ``models/layers.py``, in
+PyTorch).
 
 ``blockwise_attention`` is the plain version: an online softmax over KV
 blocks, as in the reference.  ``attention_block`` sends prefill attention on
@@ -62,13 +63,27 @@ def silu(x):
     return x * sigmoid(x)
 
 
+def gelu(x):
+    """The tanh gelu as the reference's ``jax.nn.gelu`` computes it: x *
+    (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))) with its constants
+    and every step in x's dtype.  ``F.gelu(approximate="tanh")`` rounds
+    once, and in bf16 differs from the reference in a fifth of the values
+    of a normal draw, which moves hubert's smoke logits by up to 0.09.
+    The constants are host floats rounded to x's dtype: a product with
+    one is exact in f32 and rounded once, as the reference's is, and no
+    constant is copied to the card."""
+    c1, c2 = (float(torch.tensor(c, dtype=x.dtype))
+              for c in (0.044715, math.sqrt(2.0 / math.pi)))
+    return x * (0.5 * (1 + torch.tanh(c2 * (x + c1 * (x * x * x)))))
+
+
 def mlp(x, p, act: str = "silu"):
     """Gated MLP over one layer's weights."""
     up = x @ p["w_up"]
     if act == "silu":
         h = F.silu(x @ p["w_gate"]) * up
     else:
-        h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
+        h = gelu(up)                           # jax.nn.gelu's default
     return h @ p["w_down"]
 
 
@@ -135,12 +150,16 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window=GLOBAL_WINDOW,
 
 
 def attention_block(x, p, cfg, positions, *, causal=True,
-                    window=GLOBAL_WINDOW, block_kv: int = 512):
+                    window=GLOBAL_WINDOW, prefix_len=None,
+                    block_kv: int = 512):
     """Full attention sub-block over one layer's weights: projections,
-    qk-norm, RoPE, attention, output projection.
+    qk-norm, RoPE, attention, output projection.  ``prefix_len`` (when
+    causal): every query also sees the keys before it (paligemma's image
+    prefix).
 
     On a CUDA tensor the attention is the flash-attention kernel (window 0
-    for a global layer); on the CPU it is ``blockwise_attention``."""
+    for a global layer, prefix 0 for none); on the CPU it is
+    ``blockwise_attention``."""
     B, S, d = x.shape
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(B, S, H, D)
@@ -153,10 +172,11 @@ def attention_block(x, p, cfg, positions, *, causal=True,
     k = rope(k, positions, cfg.rope_theta)
     if x.is_cuda:
         o = flash_attention(q, k, v, causal=causal,
-                            window=0 if window >= GLOBAL_WINDOW else window)
+                            window=0 if window >= GLOBAL_WINDOW else window,
+                            prefix_len=prefix_len or 0)
     else:
         o = blockwise_attention(q, k, v, causal=causal, window=window,
-                                block_kv=block_kv)
+                                prefix_len=prefix_len, block_kv=block_kv)
     return o.reshape(B, S, H * D) @ p["wo"]
 
 

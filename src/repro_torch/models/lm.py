@@ -1,9 +1,17 @@
-"""Model assembly for the dense, moe, rwkv6 and zamba2 families: forward
-pass (training / prefill), the loss, and single-token decode (the JAX
-package's ``models/lm.py``, in PyTorch).
+"""Model assembly for every family: forward pass (training / prefill), the
+loss, and single-token decode (the JAX package's ``models/lm.py``, in
+PyTorch).
 
 dense:  embed -> per-layer [RMSNorm, attention, residual, RMSNorm, MLP,
         residual] -> final RMSNorm -> tied logits.
+paligemma: the dense skeleton behind an image prefix: the image embeddings
+        times ``img_proj`` go before the scaled text embeddings, attention
+        is prefix-LM (bidirectional over the image, causal after it), and
+        the logits are the text positions'.  Decode is the dense path's,
+        with no image, as in the reference.
+hubert: an encoder: frame features times ``frontend_proj`` (masked frames
+        replaced by ``mask_embed``), dense layers with full attention and a
+        gelu MLP, untied logits over the codebook; no decode.
 moe:    the dense skeleton with the MLP replaced by the MoE block
         (``models/moe.py``); its load-balance loss, summed over the layers
         and divided by their number, is ``forward``'s ``aux``.
@@ -56,27 +64,56 @@ def _logits(params, cfg, h):
 # Forward pass (training / prefill)
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ModelConfig, tokens, *, block_kv: int = 0):
+def forward(params, cfg: ModelConfig, tokens=None, *, features=None,
+            feat_mask=None, img_embeds=None, block_kv: int = 0):
     """tokens (B, S) -> (logits (B, S, V), aux_loss scalar); ``aux`` is the
     MoE load-balance loss averaged over the layers, 0 for the other
-    families."""
+    families.  paligemma takes ``img_embeds`` (B, P, d), the image prefix
+    (the logits stay (B, S, V)); hubert takes ``features`` (B, S, d) and
+    an optional boolean ``feat_mask`` (B, S) in place of tokens."""
     check_family(cfg)
     block_kv = block_kv or cfg.attn_block_kv or (1 << 30)
+    if cfg.family == "hubert":
+        return _forward_hubert(params, cfg, features, feat_mask, block_kv)
     if cfg.family == "rwkv6":
         return _forward_rwkv6(params, cfg, tokens)
     if cfg.family == "zamba2":
         return _forward_zamba2(params, cfg, tokens, block_kv)
     h = _embed(params, cfg, tokens)
+    prefix_len = None
+    if cfg.family == "paligemma" and img_embeds is not None:
+        img = img_embeds.to(cfg.dtype) @ params["img_proj"]
+        h = torch.cat([img, h], dim=1)
+        prefix_len = img_embeds.shape[1]
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp, win in zip(params["layers"], layer_windows(cfg)):
         h = h + attention_block(rms_norm(h, lp["norm1"]), lp["attn"], cfg,
                                 positions, causal=cfg.causal, window=win,
-                                block_kv=block_kv)
+                                prefix_len=prefix_len, block_kv=block_kv)
         f, a = _ffn(rms_norm(h, lp["norm2"]), lp, cfg)
         h = h + f
         aux = aux + a
-    return _logits(params, cfg, h), aux / cfg.n_layers
+    logits = _logits(params, cfg, h)
+    if prefix_len is not None:
+        logits = logits[:, prefix_len:]
+    return logits, aux / cfg.n_layers
+
+
+def _forward_hubert(params, cfg, features, feat_mask, block_kv: int):
+    """Encoder over (masked) frame features; predicts codebook targets."""
+    h = features.to(cfg.dtype) @ params["frontend_proj"]
+    if feat_mask is not None:
+        h = torch.where(feat_mask[..., None],
+                        params["mask_embed"].to(cfg.dtype)[None, None, :], h)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    for lp in params["layers"]:
+        h = h + attention_block(rms_norm(h, lp["norm1"]), lp["attn"], cfg,
+                                positions, causal=False, window=GLOBAL_WINDOW,
+                                block_kv=block_kv)
+        h = h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _logits(params, cfg, h), aux
 
 
 def _ffn(h, lp, cfg):
@@ -105,14 +142,22 @@ def _forward_rwkv6(params, cfg, tokens):
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any],
             aux_weight: float = 0.01, z_weight: float = 1e-4):
     """Next-token loss on ``batch["tokens"]`` (B, S) under the optional
-    ``loss_mask`` (B, S), in f32, plus the z-loss and the weighted aux
-    loss; returns (loss, metrics)."""
-    tokens = batch["tokens"]
-    inp, targets = tokens[:, :-1], tokens[:, 1:].long()
-    mask = batch.get("loss_mask")
-    mask = (torch.ones_like(targets, dtype=torch.bool) if mask is None
-            else mask[:, 1:])
-    logits, aux = forward(params, cfg, inp)
+    ``loss_mask`` (B, S) (paligemma: behind ``batch["img_embeds"]``), or
+    for hubert the masked prediction of ``batch["targets"]`` (B, S) from
+    ``batch["features"]`` at the frames of ``batch["mask"]``; in f32, plus
+    the z-loss and the weighted aux loss; returns (loss, metrics)."""
+    if cfg.family == "hubert":
+        logits, aux = forward(params, cfg, features=batch["features"],
+                              feat_mask=batch["mask"])
+        targets, mask = batch["targets"].long(), batch["mask"]
+    else:
+        tokens = batch["tokens"]
+        inp, targets = tokens[:, :-1], tokens[:, 1:].long()
+        mask = batch.get("loss_mask")
+        mask = (torch.ones_like(targets, dtype=torch.bool) if mask is None
+                else mask[:, 1:])
+        logits, aux = forward(params, cfg, inp,
+                              img_embeds=batch.get("img_embeds"))
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, targets[..., None])[..., 0]
@@ -161,8 +206,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``cfg.dtype``; no KV cache, so no length limit.  zamba2: per layer the
     conv window (L, batch, K - 1, d_in + 2N) in ``cfg.dtype`` and the SSM
     state (L, batch, H, P, N) in f32, and a KV cache (G, batch, max_len,
-    KV, D) for the G applications of the shared block."""
+    KV, D) for the G applications of the shared block.  hubert, an
+    encoder, has none and raises ``ValueError``."""
     check_family(cfg)
+    if cfg.family == "hubert":
+        raise ValueError(f"no decode cache for {cfg.family} (encoder-only)")
     n_kv = cfg.n_layers
     cache: Dict[str, Any] = {}
     if cfg.family == "rwkv6":
@@ -218,8 +266,11 @@ def decode_step(params, cfg: ModelConfig, cache, token):
 
     Updates ``cache`` in place (keys and values; rwkv6's WKV, token-shift
     and channel-mix states; zamba2's conv windows and SSM states) and
-    returns it with ``len`` advanced by one."""
+    returns it with ``len`` advanced by one.  paligemma decodes text only,
+    as the reference does; hubert has no decode step."""
     check_family(cfg)
+    if cfg.family == "hubert":
+        raise ValueError(f"no decode step for {cfg.family} (encoder-only)")
     pos = cache["len"]
     if "k" in cache and pos >= cache["k"].shape[2]:
         raise ValueError(f"the cache holds {cache['k'].shape[2]} positions; "

@@ -12,8 +12,15 @@ from repro_torch.models.lm import decode_step, forward
 
 
 def prefill_fn(cfg: ModelConfig):
+    """Last-position logits of a batch: ``tokens`` (and paligemma's
+    ``img_embeds``), or hubert's ``features`` and optional ``mask``."""
     def prefill(params, batch):
-        logits, _ = forward(params, cfg, batch["tokens"])
+        if cfg.family == "hubert":
+            logits, _ = forward(params, cfg, features=batch["features"],
+                                feat_mask=batch.get("mask"))
+        else:
+            logits, _ = forward(params, cfg, batch["tokens"],
+                                img_embeds=batch.get("img_embeds"))
         # serving returns last-position logits per request
         return logits[:, -1, :]
     return prefill

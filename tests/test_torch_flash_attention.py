@@ -4,8 +4,10 @@ On the CPU: the plain versions (``flash_attention_torch``, the kernel's
 blocked online softmax, and ``attention_ref``) against the reference's
 Pallas kernel in interpret mode and its oracle, on the same inputs made
 with numpy, over the sweep of ``tests/test_kernels.py`` in f32 and bf16
-(tolerances 2e-3 and 5e-2, the reference's own), and an emulation of the
-bf16 kernel's rounding against the bound the kernel is held to.  On a card
+(tolerances 2e-3 and 5e-2, the reference's own), the prefix-LM mask
+(``prefix_len``, which the reference computes in ``blockwise_attention``
+only) against that function, and an emulation of the bf16 kernel's
+rounding against the bound the kernel is held to.  On a card
 (``cuda`` marker, skipped without one): the hand-written kernel (bf16: the
 tensor-core form; f32: the CUDA-core form) against its plain version;
 those tests import nothing of JAX, so they also run where only the port is
@@ -85,7 +87,8 @@ def test_plain_version_matches_pallas_interpret(reference, case, dtype):
     pallas_op, ref_oracle, to_jax = reference
     shape, (causal, window) = case
     q, k, v = _inputs(shape, dtype)
-    got = flash_attention_torch(q, k, v, causal=causal, window=window, bk=64)
+    got = flash_attention_torch(q, k, v, causal=causal, window=window,
+                                prefix_len=0, bk=64)
     want = pallas_op(to_jax(q), to_jax(k), to_jax(v), causal=causal,
                      window=window, bq=64, bk=64, interpret=True)
     assert got.dtype == dtype and got.shape == q.shape
@@ -110,14 +113,62 @@ def test_attention_ref_matches_reference_oracle(reference, case, dtype):
 @pytest.mark.parametrize("window", [GLOBAL_WINDOW, 8, 64])
 def test_kernel_window_convention_matches_blockwise(causal, window):
     """``attention_block`` hands the kernel ``window = 0`` for a global
-    layer and the window itself otherwise; in the kernel's arithmetic that
-    is the mask ``blockwise_attention`` applies."""
+    layer and the window itself otherwise, and ``prefix_len or 0``; in the
+    kernel's arithmetic that is the mask ``blockwise_attention`` applies,
+    with no prefix, one inside the tiles and one past the end."""
     q, k, v = _inputs((2, 96, 96, 8, 2, 16), torch.float32, seed=3)
-    got = flash_attention_torch(q, k, v, causal=causal,
-                                window=0 if window >= GLOBAL_WINDOW else window)
-    want = blockwise_attention(q, k, v, causal=causal, window=window,
-                               block_kv=32)
-    _close(got, want, torch.float32)
+    for prefix_len in (None, 40, 99):
+        got = flash_attention_torch(
+            q, k, v, causal=causal,
+            window=0 if window >= GLOBAL_WINDOW else window,
+            prefix_len=prefix_len or 0)
+        want = blockwise_attention(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len, block_kv=32)
+        _close(got, want, torch.float32)
+
+
+#: (B, S, H, KV, D): GQA and MQA (paligemma's one KV head)
+PREFIX_SHAPES = [(2, 37, 8, 2, 16), (1, 40, 4, 1, 32)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", PREFIX_SHAPES,
+                         ids=lambda s: "B{}-S{}-H{}-KV{}-D{}".format(*s))
+@pytest.mark.parametrize("window", [0, 9])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("extra", [1, 5, 0, 3], ids=["P1", "P5", "PS",
+                                                     "PS+3"])
+def test_prefix_lm_matches_reference_blockwise(reference, extra, causal,
+                                               window, shape, dtype):
+    """``prefix_len`` = P in the plain version and the wrapper's CPU branch
+    against the reference's ``blockwise_attention(prefix_len=P)``: every
+    key before P is seen by every query when causal, P is ignored when
+    not; P = 1, 5, S and S + 3 (``extra`` 0 and 3 are added to S)."""
+    _, _, to_jax = reference
+    from repro.models.layers import blockwise_attention as ref_blockwise
+    B, S, H, KV, D = shape
+    P = extra if extra in (1, 5) else S + extra
+    q, k, v = _inputs((B, S, S, H, KV, D), dtype, seed=17)
+    want = ref_blockwise(to_jax(q), to_jax(k), to_jax(v), causal=causal,
+                         window=window or GLOBAL_WINDOW, prefix_len=P,
+                         block_kv=16)
+    plain = flash_attention_torch(q, k, v, causal=causal, window=window,
+                                  prefix_len=P, bk=16)
+    wrapped = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  prefix_len=P)
+    assert plain.dtype == wrapped.dtype == dtype
+    assert torch.equal(wrapped, flash_attention_torch(
+        q, k, v, causal=causal, window=window, prefix_len=P))
+    for got in (plain, wrapped,
+                attention_ref(q, k, v, causal=causal, window=window,
+                              prefix_len=P)):
+        _close(got.float(), want.astype("float32"), dtype)
+    if causal and window == 0 and P > 1:
+        # the prefix is seen (P = 1 is causal attention itself): row 0
+        # differs from plain causal attention
+        causal_only = attention_ref(q, k, v, causal=True)
+        assert not torch.allclose(plain[:, 0].float(),
+                                  causal_only[:, 0].float(), atol=0.1)
 
 
 def kernel_rounding(q, k, v, *, causal=True, bk=128):
@@ -199,6 +250,13 @@ def test_wrapper_rejects_negative_window():
 
 
 @pytest.mark.parametrize("causal", [True, False])
+def test_wrapper_rejects_negative_prefix(causal):
+    q, k, v = _inputs((1, 16, 16, 4, 2, 16), torch.float32)
+    with pytest.raises(ValueError, match="prefix_len"):
+        ops.flash_attention(q, k, v, causal=causal, prefix_len=-1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_wrapper_rejects_a_window_that_leaves_a_row_no_key(causal):
     """Query row qp sees no key once qp >= Skv - 1 + window; the wrapper
     refuses such calls on every device, and takes the last window that
@@ -257,6 +315,70 @@ def test_kernel_matches_plain_version(card, case, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=atol,
                                rtol=rtol)
+
+
+#: (B, Sq, Skv, H, KV, D) x (causal, window, prefix_len)
+CARD_PREFIX_CASES = [
+    ((2, 2304, 2304, 8, 1, 256), (True, 0, 256)),  # paligemma-3b's prefill
+    ((1, 300, 300, 8, 2, 128), (True, 0, 100)),    # ends inside a tile
+    ((1, 200, 200, 4, 1, 256), (True, 0, 0)),      # D = 256 MQA, no prefix
+    ((1, 300, 300, 4, 1, 256), (True, 0, 64)),     # a whole 64-key tile
+    ((1, 257, 257, 4, 2, 80), (True, 0, 1)),       # causal itself
+    ((1, 130, 130, 4, 2, 64), (True, 0, 130)),     # prefix = S
+    ((1, 130, 130, 4, 2, 64), (True, 0, 500)),     # prefix past S
+    ((1, 300, 300, 4, 2, 128), (True, 64, 200)),   # with a window
+    ((1, 300, 300, 4, 2, 128), (False, 0, 100)),   # ignored: not causal
+    ((2, 2048, 2048, 16, 16, 80), (False, 0, 0)),  # hubert-xlarge's prefill
+]
+
+
+def _prefix_ids(case):
+    (B, Sq, Skv, H, KV, D), (causal, window, prefix_len) = case
+    return (f"B{B}-Sq{Sq}-Skv{Skv}-H{H}-KV{KV}-D{D}-causal{int(causal)}"
+            f"-w{window}-p{prefix_len}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", CARD_PREFIX_CASES, ids=_prefix_ids)
+def test_kernel_matches_plain_version_with_prefix(card, case, dtype):
+    shape, (causal, window, prefix_len) = case
+    q, k, v = _inputs(shape, dtype, seed=23, device=card)
+    before = ops.launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    assert ops.launches() == before + 1
+    want = flash_attention_torch(q, k, v, causal=causal, window=window,
+                                 prefix_len=prefix_len)
+    atol, rtol = KERNEL_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_attention_block_sends_the_prefix_to_the_kernel(card, monkeypatch):
+    """On a CUDA tensor, prefix-LM attention is one kernel launch and never
+    the plain ``blockwise_attention``."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import layers
+    from repro_torch.models.common import init_attention
+
+    def refuse(*args, **kw):
+        raise AssertionError("blockwise_attention ran on the card")
+    monkeypatch.setattr(layers, "blockwise_attention", refuse)
+    cfg = smoke_config("paligemma-3b")
+    p = init_attention(torch.Generator(device=card).manual_seed(0), cfg,
+                       card, cfg.dtype)
+    x = torch.randn((2, 20, cfg.d_model), device=card).to(cfg.dtype)
+    positions = torch.arange(20, device=card)[None, :]
+    before = ops.launches()
+    out = layers.attention_block(x, p, cfg, positions, causal=True,
+                                 prefix_len=cfg.n_prefix_tokens)
+    torch.cuda.synchronize()
+    assert ops.launches() == before + 1
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda

@@ -1,12 +1,15 @@
 """The port's serving path against the JAX package's.
 
 For the smoke configurations of the four dense architectures, the two MoE
-architectures (deepseek-moe-16b, arctic-480b), rwkv6 and zamba2, the
+architectures (deepseek-moe-16b, arctic-480b), rwkv6, zamba2, the audio
+encoder hubert-xlarge and the image-prefix LM paligemma-3b, the
 reference's ``init_params`` weights are carried into the port
 through ``interop.lm_params_from_state``, and both packages run on them:
-layers, ``forward``, teacher-forced ``decode_step`` (both fed the same
-tokens, so an argmax flip cannot cascade), ``prefill_fn`` and greedy
-decoding, and ``lm_loss``.  f32 is held to 2e-3 and bf16 to 5e-2, the
+layers, ``forward`` (hubert on frame features under a frame mask,
+paligemma behind an image prefix), teacher-forced ``decode_step`` (both
+fed the same tokens, so an argmax flip cannot cascade; hubert has none),
+``prefill_fn`` and greedy decoding, and ``lm_loss`` (hubert's masked
+prediction among them).  f32 is held to 2e-3 and bf16 to 5e-2, the
 tolerances of ``tests/test_kernels.py``.
 All of it runs on the CPU, where attention is the plain version.
 """
@@ -39,11 +42,15 @@ from repro_torch.models.lm import (decode_step, forward, init_cache,
                                    layer_windows, lm_loss)
 from repro_torch.serve.serve_step import decode_fn, prefill_fn
 
-ARCH_NAMES = ["qwen3-8b", "h2o-danube-1.8b", "h2o-danube-3-4b", "gemma3-27b",
-              "deepseek-moe-16b", "arctic-480b", "rwkv6-1.6b", "zamba2-2.7b"]
-#: one architecture of each ported family
+#: the architectures that decode, and hubert, which only encodes
+DECODE_ARCHS = ["qwen3-8b", "h2o-danube-1.8b", "h2o-danube-3-4b",
+                "gemma3-27b", "deepseek-moe-16b", "arctic-480b", "rwkv6-1.6b",
+                "zamba2-2.7b", "paligemma-3b"]
+ARCH_NAMES = DECODE_ARCHS + ["hubert-xlarge"]
+#: one architecture of each family
 FAMILY_ARCHS = {"dense": "qwen3-8b", "moe": "deepseek-moe-16b",
-                "rwkv6": "rwkv6-1.6b", "zamba2": "zamba2-2.7b"}
+                "rwkv6": "rwkv6-1.6b", "zamba2": "zamba2-2.7b",
+                "hubert": "hubert-xlarge", "paligemma": "paligemma-3b"}
 #: name -> (jax dtype, torch dtype, tolerance)
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-3),
           "bf16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
@@ -81,6 +88,31 @@ def _tokens(cfg, B, S, seed=0):
         .astype(np.int32)
 
 
+def _inputs(cfg, B, S, seed=0):
+    """A model's inputs as numpy arrays, as the reference's
+    ``tests/test_arch_smoke.py`` makes them: tokens, and paligemma's image
+    embeddings (B, n_prefix_tokens, d); or hubert's frame features
+    (B, S, d) and frame mask (B, S)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "hubert":
+        return {"features": rng.standard_normal((B, S, cfg.d_model))
+                .astype(np.float32),
+                "feat_mask": rng.random((B, S)) < 0.3}
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "paligemma":
+        out["img_embeds"] = rng.standard_normal(
+            (B, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _forward_args(inputs, lib):
+    """``forward``'s (tokens, keywords) from ``_inputs`` for torch or jax."""
+    conv = torch.from_numpy if lib == "torch" else jnp.asarray
+    kw = {k: conv(a) for k, a in inputs.items() if k != "tokens"}
+    tokens = inputs.get("tokens")
+    return (None if tokens is None else conv(tokens)), kw
+
+
 # ---------------------------------------------------------------------------
 # configurations and parameters
 # ---------------------------------------------------------------------------
@@ -105,9 +137,10 @@ def test_configs_match_the_reference(arch):
 
 
 def test_registry_holds_the_dense_archs():
-    """The registry holds every ported architecture (the dense ones among
-    them) and refuses a name it does not know."""
-    assert sorted(ARCHS) == sorted(ARCH_NAMES)
+    """The registry holds every architecture of the reference's (the dense
+    ones among them) and refuses a name it does not know."""
+    from repro.configs import ARCHS as REF_ARCHS
+    assert sorted(ARCHS) == sorted(ARCH_NAMES) == sorted(REF_ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch-7b")
 
@@ -164,6 +197,17 @@ def test_init_params_shapes_scales_and_bytes(arch):
                    * pcfg.expert_d_ff ** 0.5 - 1.0) < 0.1
         assert ("ws_gate" in mp) == bool(pcfg.n_shared_experts)
         assert ("dense" in mp) == pcfg.dense_residual
+    # the front ends: frontend_proj and img_proj at 1/sqrt(d), mask_embed
+    # at 0.02 (64 draws: within 3 standard errors of the std)
+    for name in ("frontend_proj", "img_proj"):
+        assert (name in params) == (pcfg.frontend == {
+            "frontend_proj": "audio", "img_proj": "image"}[name])
+        if name in params:
+            assert abs(params[name].float().std().item() * d ** 0.5
+                       - 1.0) < 0.1
+    if pcfg.frontend == "audio":
+        assert params["mask_embed"].shape == (d,)
+        assert abs(params["mask_embed"].float().std().item() - 0.02) < 0.006
     if pcfg.family == "rwkv6":
         # ww at 0.01, mix and u at 0.5, w_bias -5, norms ones
         assert abs(lp["ww"].float().std().item() - 0.01) < 0.001
@@ -179,14 +223,53 @@ def test_init_params_shapes_scales_and_bytes(arch):
                                params["layers"][1][key], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("family", ["hubert", "paligemma"])
-def test_unported_families_name_their_roadmap_item(family):
-    cfg = ModelConfig(name="x", family=family, n_layers=1, d_model=8,
-                      n_heads=2, d_ff=8, vocab=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(torch.Generator(), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 4, device="cpu")
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "forward",
+                                   "lm_params_from_state"])
+def test_unknown_family_raises(entry):
+    cfg = ModelConfig(name="x", family="no-such-family", n_layers=1,
+                      d_model=8, n_heads=2, d_ff=8, vocab=16)
+    calls = {
+        "init_params": lambda: init_params(torch.Generator(), cfg, "cpu"),
+        "init_cache": lambda: init_cache(cfg, 1, 4, device="cpu"),
+        "forward": lambda: forward({}, cfg, torch.zeros((1, 2),
+                                                        dtype=torch.int32)),
+        "lm_params_from_state": lambda: lm_params_from_state({}, cfg, "cpu"),
+    }
+    with pytest.raises(ValueError, match="unknown family"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "paligemma-3b"])
+def test_lm_params_from_state_carries_the_front_ends(arch):
+    """The front end's weights and every layer cross unchanged."""
+    _, rparams, pcfg, pparams = _models(arch, "f32")
+    names = {"audio": ("frontend_proj", "mask_embed"),
+             "image": ("img_proj",)}[pcfg.frontend]
+    assert set(pparams) == {"embed", "final_norm", "layers", *names} | (
+        set() if pcfg.tie_embeddings else {"lm_head"})
+    for name in names:
+        np.testing.assert_array_equal(_np(pparams[name]),
+                                      np.asarray(rparams[name]))
+    for i, lp in enumerate(pparams["layers"]):
+        for group in ("attn", "mlp"):
+            for w, t in lp[group].items():
+                np.testing.assert_array_equal(
+                    _np(t), np.asarray(rparams[group][w][i]))
+
+
+def test_hubert_encodes_but_does_not_decode():
+    """hubert is encoder-only, as in the reference: no cache, no decode
+    step, and the serving CLI refuses it; its prefill encodes."""
+    rcfg, _, pcfg, pparams = _models("hubert-xlarge", "f32")
+    with pytest.raises(ValueError, match="encoder-only"):
+        init_cache(pcfg, 1, 4, device="cpu")
+    with pytest.raises(ValueError, match="no decode cache"):
+        ref_init_cache(rcfg, 1, 4)
+    with pytest.raises(ValueError, match="encoder-only"):
+        decode_step(pparams, pcfg, {"len": 0}, torch.zeros((1, 1),
+                                                           dtype=torch.int32))
+    with pytest.raises(SystemExit, match="encoder-only"):
+        main(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +298,23 @@ def test_rms_norm_rope_mlp_match(dt):
         want = ref_layers.mlp(_jax(h, jdt), {n: _jax(a, jdt)
                                              for n, a in w.items()}, None, act)
         _close(_np(got), want, tol)
+
+
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
+def test_gelu_matches_the_reference_bit_for_bit(jit):
+    """hubert's MLP: in bf16 the reference's ``jax.nn.gelu`` (tanh form)
+    rounds after every step with its constants in bf16, eager and jitted;
+    so does the port's written-out ``gelu``.  ``F.gelu`` rounds once and
+    differs from it in about a fifth of these values."""
+    x = (3 * np.random.default_rng(0).standard_normal(100_000)) \
+        .astype(np.float32)
+    xt = torch.from_numpy(x).bfloat16()
+    fn = jax.jit(jax.nn.gelu) if jit else jax.nn.gelu
+    np.testing.assert_array_equal(
+        layers.gelu(xt).float().numpy(),
+        np.asarray(fn(_jax(x, jnp.bfloat16)), np.float32))
+    rounded_once = torch.nn.functional.gelu(xt, approximate="tanh")
+    assert (rounded_once != layers.gelu(xt)).float().mean() > 0.1
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -269,10 +369,12 @@ def test_decode_attention_matches(dt, window, cache_len):
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_forward_matches(arch, dt):
     rcfg, rparams, pcfg, pparams = _models(arch, dt)
-    tokens = _tokens(pcfg, 2, 16)
-    got, aux = forward(pparams, pcfg, torch.from_numpy(tokens))
+    inputs = _inputs(pcfg, 2, 16)
+    tokens, kw = _forward_args(inputs, "torch")
+    got, aux = forward(pparams, pcfg, tokens, **kw)
+    tokens, kw = _forward_args(inputs, "jax")
     want, raux = jax.jit(ref_forward, static_argnums=1)(
-        rparams, rcfg, jnp.asarray(tokens))
+        rparams, rcfg, tokens, **kw)
     assert got.shape == (2, 16, pcfg.vocab) and got.dtype == pcfg.dtype
     _close(_np(got), want, DTYPES[dt][2])
     if pcfg.family == "moe":
@@ -285,7 +387,7 @@ def test_forward_matches(arch, dt):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("arch", ARCH_NAMES)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_teacher_forced_decode_matches(arch, dt):
     rcfg, rparams, pcfg, pparams = _models(arch, dt)
     B, S = 2, 10
@@ -340,16 +442,21 @@ def test_teacher_forced_decode_matches(arch, dt):
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_prefill_fn_matches(arch, dt):
+    """The serving batch: ``tokens`` (and paligemma's ``img_embeds``), or
+    hubert's ``features`` and ``mask``."""
     rcfg, rparams, pcfg, pparams = _models(arch, dt)
-    tokens = _tokens(pcfg, 3, 12, seed=2)
-    got = prefill_fn(pcfg)(pparams, {"tokens": torch.from_numpy(tokens)})
-    want = jax.jit(ref_prefill_fn(rcfg))(rparams,
-                                         {"tokens": jnp.asarray(tokens)})
+    inputs = _inputs(pcfg, 3, 12, seed=2)
+    if "feat_mask" in inputs:
+        inputs["mask"] = inputs.pop("feat_mask")
+    got = prefill_fn(pcfg)(pparams, {k: torch.from_numpy(a)
+                                     for k, a in inputs.items()})
+    want = jax.jit(ref_prefill_fn(rcfg))(rparams, {k: jnp.asarray(a)
+                                                   for k, a in inputs.items()})
     assert got.shape == (3, pcfg.vocab)
     _close(_np(got), want, DTYPES[dt][2])
 
 
-@pytest.mark.parametrize("arch", ARCH_NAMES)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_greedy_generate_matches_in_f32(arch):
     rcfg, rparams, pcfg, pparams = _models(arch, "f32")
     rng = np.random.default_rng(3)
@@ -371,7 +478,7 @@ def test_decode_fn_returns_the_argmax():
     assert cache["len"] == 1
 
 
-@pytest.mark.parametrize("arch", ARCH_NAMES)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_serve_main_on_cpu(arch, capsys):
     out = main(["--arch", arch, "--smoke", "--device", "cpu",
                 "--requests", "3", "--max-new", "5"])
@@ -385,15 +492,22 @@ def test_serve_main_on_cpu(arch, capsys):
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
 def test_lm_loss_matches(family, dt):
+    """Next-token loss with and without a loss mask (paligemma behind its
+    image prefix); hubert's masked prediction under two frame masks."""
     rcfg, rparams, pcfg, pparams = _models(FAMILY_ARCHS[family], dt)
-    tokens = _tokens(pcfg, 2, 17, seed=5)
+    inputs = _inputs(pcfg, 2, 17, seed=5)
     mask = np.random.default_rng(6).random((2, 17)) < 0.7
     for loss_mask in (None, mask):
-        batch = {"tokens": torch.from_numpy(tokens)}
-        rbatch = {"tokens": jnp.asarray(tokens)}
-        if loss_mask is not None:
-            batch["loss_mask"] = torch.from_numpy(loss_mask)
-            rbatch["loss_mask"] = jnp.asarray(loss_mask)
+        if family == "hubert":
+            frames = inputs["feat_mask"] if loss_mask is None else loss_mask
+            arrays = {"features": inputs["features"], "mask": frames,
+                      "targets": _tokens(pcfg, 2, 17, seed=7)}
+        else:
+            arrays = dict(inputs)
+            if loss_mask is not None:
+                arrays["loss_mask"] = loss_mask
+        batch = {k: torch.from_numpy(a) for k, a in arrays.items()}
+        rbatch = {k: jnp.asarray(a) for k, a in arrays.items()}
         total, metrics = lm_loss(pparams, pcfg, batch)
         rtotal, rmetrics = jax.jit(ref_lm_loss, static_argnums=1)(
             rparams, rcfg, rbatch)
@@ -402,7 +516,10 @@ def test_lm_loss_matches(family, dt):
         for name in ("loss", "zloss", "aux"):
             assert metrics[name].dtype == torch.float32, name
             _close(metrics[name].detach().numpy(), rmetrics[name], tol)
-        assert int(metrics["tokens"]) == int(rmetrics["tokens"]) == (
-            32 if loss_mask is None else int(loss_mask[:, 1:].sum()))
+        want_tokens = (int(arrays["mask"].sum()) if family == "hubert"
+                       else 32 if loss_mask is None
+                       else int(loss_mask[:, 1:].sum()))
+        assert int(metrics["tokens"]) == int(rmetrics["tokens"]) == \
+            want_tokens
         if family != "moe":
             assert float(metrics["aux"]) == 0.0
