@@ -22,7 +22,9 @@ of the shared attention block), rwkv6-1.6b (24 RWKV-6 blocks) and
 deepseek-moe-16b (28 layers of 64 routed experts top-6 and 2 shared) at
 their published widths, random weights from the seed (zamba2's per-head
 decay from Mamba-2's initial ranges), through ``prefill_fn`` and
-``greedy_generate``.
+``greedy_generate``.  The training path: h2o-danube-1.8b whole (24
+layers) through ``launch.train.main``, attention's gradient in the
+hand-written backward kernel.
 Each phase prints one JSON line:
 
   device           the card's name and power limit (``nvidia-smi``), versions
@@ -99,6 +101,13 @@ Each phase prints one JSON line:
                    2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want| in bf16),
                    a planted fault (one KV tile dropped) that the bound
                    must catch, kernel, plain and SDPA ms, the bound
+  flash_bwd        per case (causal, window, prefix-LM with a prefix inside
+                   a tile, full; GQA and MQA; D = 64, 80, 128, 256; ragged;
+                   f32 and bf16): the backward kernel's dQ, dK and dV vs
+                   its plain version under the same bounds, three planted
+                   faults that must exceed them (one KV tile left out of
+                   dQ; the D term left out; the prefix ignored), kernel,
+                   plain and SDPA-backward ms, the bound
   ssd              per case (bf16: the tensor-core form; f32: the
                    CUDA-core form): the Mamba-2 SSD kernel vs its plain
                    version (the same per-element bounds) on steps whose state
@@ -131,11 +140,24 @@ Each phase prints one JSON line:
                    tok/s, ms per decode step, decode path vs prefill
                    (checked in f32; the MoE model at its dropless capacity
                    factor n_experts / top_k)
-  lm_breakdown     per model, prefill and decode under torch.profiler
+  lm_breakdown     per model, prefill and decode under torch.profiler;
+                   for training, a step's gradient part and its AdamW
+                   update (device ms by group)
+  lm_train         h2o-danube-1.8b: the f32 check on its first 4 layers at
+                   B = 2 x 2048 (the loss and every gradient of the kernel
+                   path vs the plain path within 2e-3 relative L2; 2
+                   microbatches vs 1), then ``launch.train.main`` on the
+                   whole model in bf16, B = 4 x 2048, 6 steps checkpointed
+                   every 3 and resumed to 8 (48 forward and 24 backward
+                   flash launches a step, finite losses, the restored
+                   state bit for bit the saved one; step ms, tokens/s,
+                   peak memory), one ``--compress`` step and one
+                   factored-AdamW step (checked)
   kernels          the summary line of every kernel (cgra_exec's launches
                    by path: run_batch, stream, service, breaker, sharded,
                    cluster and cluster_heal from the workers' engines, dse,
-                   traced)
+                   traced; flash_attention's: serving, training; the
+                   backward kernel's from training)
 
 The raw ``nvidia-smi`` line comes next, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -149,10 +171,13 @@ import contextlib
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -468,6 +493,7 @@ def build_all() -> dict:
         return lib, time.perf_counter() - t0
 
     kernels = (("cgra_exec", cgra_ops), ("flash_attention", fa_ops),
+               ("flash_attention_bwd", SimpleNamespace(build=fa_ops.build_bwd)),
                ("mamba2_ssd", ssd_ops), ("rwkv6", wkv_ops))
     sass = {}
     with ThreadPoolExecutor(len(kernels)) as pool:
@@ -495,8 +521,12 @@ def ptxas_line(line: str) -> str:
     args = re.search(r"ILb([01])ELb([01])E", head.group(1))
     cols = re.search(r"(?:wkv6_kernel_wgmma|attn_kernel(?:_wgmma)?)ILi(\d+)EE",
                      head.group(1))
+    bwd = re.search(r"bwd_\w+_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
+                    head.group(1))
     form = (f"<{args.group(1)},{args.group(2)}>" if args
-            else f"<{cols.group(1)}>" if cols else "")
+            else f"<{cols.group(1)}>" if cols
+            else f"<{'f32' if bwd.group(1) == 'f' else 'bf16'},"
+                 f"{bwd.group(2)}>" if bwd else "")
     return f"entry {kernel_name(head.group(1))}{form}"
 
 
@@ -1435,24 +1465,46 @@ def traced_phase(dev, rng) -> int:
     return launches
 
 
-def attention_bound(B, Sq, Skv, H, KV, D, dtype, causal, window,
-                    prefix_len=0):
-    """Least time for one attention call: 4 * D flops per (query, key)
-    pair the mask keeps (a causal query also sees the keys before
-    ``prefix_len``), over the peak rate of ``dtype``, against q, k, v read
-    once and the output written once over HBM's rate."""
+def attention_pairs(Sq, Skv, causal, window, prefix_len=0) -> int:
+    """The (query, key) pairs the mask keeps, per batch row and head (a
+    causal query also sees the keys before ``prefix_len``)."""
     import torch
     q = torch.arange(Sq, dtype=torch.int64)
     lo = (q - window + 1).clamp_min(0) if window > 0 else torch.zeros_like(q)
     hi = (q.clamp_min(prefix_len - 1).clamp_max(Skv - 1) if causal
           else torch.full_like(q, Skv - 1))
-    pairs = int((hi - lo + 1).clamp_min(0).sum())
+    return int((hi - lo + 1).clamp_min(0).sum())
+
+
+def roofline(flops, nbytes, dtype):
+    """(ms, bound_by): the larger of the operations at ``dtype``'s peak and
+    the bytes at HBM's rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound(B, Sq, Skv, H, KV, D, dtype, causal, window,
+                    prefix_len=0):
+    """Least time for one attention call: 4 * D flops per (query, key)
+    pair the mask keeps, over the peak rate of ``dtype``, against q, k, v
+    read once and the output written once over HBM's rate."""
+    pairs = attention_pairs(Sq, Skv, causal, window, prefix_len)
     flops = 4 * D * pairs * B * H
     item = 2 if dtype == "bfloat16" else 4
     nbytes = item * (2 * B * Sq * H * D + 2 * B * Skv * KV * D)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    return (*roofline(flops, nbytes, dtype), flops, nbytes)
+
+
+def attention_bwd_bound(B, S, H, KV, D, dtype, causal, window, prefix_len=0):
+    """Least time for one backward call: 10 * D flops per kept pair (S
+    again, dP, dV, dS K, dS^T Q) over the peak rate of ``dtype``, against
+    q, o, dO, dQ, k, v, dK, dV read or written once and the f32 lse."""
+    pairs = attention_pairs(S, S, causal, window, prefix_len)
+    flops = 10 * D * pairs * B * H
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (4 * B * S * H * D + 4 * B * S * KV * D) + 4 * B * H * S
+    return (*roofline(flops, nbytes, dtype), flops, nbytes)
 
 
 def sdpa(q, k, v, causal, window, prefix_len=0):
@@ -1630,6 +1682,160 @@ def flash_phases(dev, sass) -> dict:
         "library_ms": lead["library_ms"],
         "shape": "qwen3-8b prefill attention: B=2, S=2048, H=32, KV=8, "
                  "D=128, bf16, causal", "forms": forms}
+
+
+#: (name, B, S, H, KV, D, dtype, causal, window, prefix_len) of the
+#: flash_bwd phase: danube-1.8b's training attention (B 4 x 2048, 32 heads
+#: and 8 KV heads of 80, its 4096-token window) in bf16 and, at the f32
+#: check's B = 2, in f32; a window shorter than S; paligemma's prefix-LM
+#: shape (MQA, D = 256, prefix 256) and a prefix that ends inside a tile;
+#: full attention (hubert-like, D = 80) in bf16 and f32; ragged lengths at
+#: D = 64 (f32) and D = 128 (MQA, bf16); a prefix in f32
+FLASH_BWD_CASES = [
+    ("danube-train", 4, 2048, 32, 8, 80, "bfloat16", True, 4096, 0),
+    ("danube-train-f32", 2, 2048, 32, 8, 80, "float32", True, 4096, 0),
+    ("window", 1, 1000, 8, 2, 64, "bfloat16", True, 200, 0),
+    ("paligemma-prefix", 1, 2304, 8, 1, 256, "bfloat16", True, 0, 256),
+    ("prefix-in-tile", 2, 600, 8, 1, 256, "bfloat16", True, 0, 100),
+    ("prefix-f32", 1, 300, 4, 2, 128, "float32", True, 0, 70),
+    ("full", 2, 512, 16, 16, 80, "bfloat16", False, 0, 0),
+    ("full-f32", 1, 256, 4, 4, 64, "float32", False, 0, 0),
+    ("ragged-f32-d64", 1, 333, 8, 2, 64, "float32", True, 0, 0),
+    ("mqa-d128", 1, 777, 8, 1, 128, "bfloat16", True, 0, 0),
+]
+FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_bwd.cu")
+
+
+def bwd_cat(grads):
+    """dq, dk, dv as one (B, n) tensor, so that one bound covers all three."""
+    import torch
+    return torch.cat([g.flatten(1) for g in grads], dim=1)
+
+
+def bwd_dq_dropped_tile(q, k, v, o, do, lse, causal, window, prefix_len):
+    """What a faulty backward returns if the dQ of the last FAULT_ROWS
+    query rows leaves out the first KV tile of FAULT_TILE keys they see:
+    the plain backward in f32 less that tile's share of dQ, in q's dtype
+    (dK, dV as the plain version's)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_torch
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    dq, dk, dv = flash_attention_bwd_torch(
+        q.float(), k.float(), v.float(), o.float(), do.float(), lse,
+        causal=causal, window=window, prefix_len=prefix_len)
+    first = max(0, S - FAULT_ROWS - window + 1) if window > 0 else 0
+    lo = first // FAULT_TILE * FAULT_TILE
+    kt = k[:, lo:lo + FAULT_TILE].float().repeat_interleave(G, dim=2)
+    vt = v[:, lo:lo + FAULT_TILE].float().repeat_interleave(G, dim=2)
+    rows = slice(S - FAULT_ROWS, S)
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, rows].float() * scale, kt)
+    qp = torch.arange(S - FAULT_ROWS, S, device=q.device)[:, None]
+    kp = torch.arange(lo, lo + kt.shape[1], device=q.device)[None, :]
+    keep = torch.ones_like(qp >= kp)
+    if causal:
+        keep &= (qp >= kp) | (kp < prefix_len)
+    if window > 0:
+        keep &= (qp - kp) < window
+    p = torch.exp(s - lse[:, :, rows, None]).masked_fill(~keep, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do[:, rows].float(), vt)
+    delta = (do[:, rows].float() * o[:, rows].float()).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 1)[..., None])
+    dq[:, rows] -= scale * torch.einsum("bhqk,bkhd->bqhd", ds, kt)
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def sdpa_bwd_ms(q, k, v, do, causal, window, prefix_len):
+    """SDPA's backward alone (``torch.autograd.grad`` of one forward with
+    its graph kept), ms a call: the yardstick only."""
+    import torch
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    S = q.shape[1]
+    out = sdpa(*leaves, causal, window if window < S else 0, prefix_len)
+    do_t = do.transpose(1, 2)
+    ms, _ = time_ms(lambda: torch.autograd.grad(out, leaves, do_t,
+                                                retain_graph=True),
+                    reps=5, warmup=1)
+    return ms
+
+
+def flash_bwd_phases(dev) -> dict:
+    """The backward kernel against its plain version on every case
+    (``FLASH_BWD_CASES``: dQ, dK and dV under one per-element bound), with
+    three planted faults held to the same bound (they must fail it): one
+    KV tile left out of dQ (``bwd_dq_dropped_tile``), the D term left out
+    (o taken as 0), and on a prefix case the prefix ignored (its pairs
+    dropped, what a tile range blind to the prefix leaves out); the
+    kernel's time, the plain version's, SDPA's backward and the bound.
+    Returns the kernel's summary entry, less the main path's launches."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows, max_err = {}, 0.0
+    for name, B, S, H, KV, D, dt, causal, window, prefix in FLASH_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((B, S, H, D), (B, S, KV, D),
+                                     (B, S, KV, D), (B, S, H, D)))
+        mask = {"causal": causal, "window": window, "prefix_len": prefix}
+        o, lse = ops._forward(q, k, v, causal, window, prefix, True)
+        faults = {
+            "dq_dropped_tile": lambda: (bwd_cat(bwd_dq_dropped_tile(
+                q, k, v, o, do, lse, causal, window, prefix)), 0),
+            "no_delta": lambda: (bwd_cat(flash_attention_bwd_torch(
+                q, k, v, torch.zeros_like(o), do, lse, **mask)), 0)}
+        if prefix:
+            faults["prefix_blind"] = lambda: (bwd_cat(
+                flash_attention_bwd_torch(q, k, v, o, do, lse, causal=causal,
+                                          window=window, prefix_len=0)), 0)
+        res = check_case(
+            "flash_bwd", name, dt,
+            lambda: bwd_cat(ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                                    **mask)),
+            lambda: bwd_cat(flash_attention_bwd_torch(q, k, v, o, do, lse,
+                                                      **mask)),
+            faults)
+        max_err = max(max_err, res["max_abs_err"])
+        b_ms, b_by, flops, nbytes = attention_bwd_bound(B, S, H, KV, D, dt,
+                                                        causal, window,
+                                                        prefix)
+        rows[name] = row = {
+            "case": name, "B": B, "S": S, "H": H, "KV": KV, "D": D,
+            "dtype": dt, "causal": causal, "window": window,
+            "prefix_len": prefix, **res,
+            "library_ms": sdpa_bwd_ms(q, k, v, do, causal, window, prefix),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": nbytes, "tflop_s": flops / res["ms"] / 1e9}
+        emit("flash_bwd", **row)
+        del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    lead = rows["danube-train"]
+    forms = {dt: {"kernels": ["bwd_delta_kernel", "bwd_dkdv_kernel",
+                              "bwd_dq_kernel"], "source": FLASH_BWD_SOURCE,
+                  "ms": rows[case]["ms"], "bound_ms": rows[case]["bound_ms"],
+                  "library_ms": rows[case]["library_ms"]}
+             for dt, case in (("bfloat16", "danube-train"),
+                              ("float32", "danube-train-f32"))}
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": FLASH_BWD_SOURCE,
+        "replaces": "src/repro/models/layers.py:77",
+        "replaces_note": "XLA's autodiff of blockwise_attention; the JAX "
+                         "package has no backward pallas_call",
+        "launches": None, "max_abs_err": max_err,
+        "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+        "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+        "library_ms": lead["library_ms"],
+        "shape": "h2o-danube-1.8b training attention: B=4, S=2048, H=32, "
+                 "KV=8, D=80, bf16, causal, window 4096", "forms": forms}
 
 
 def ssd_bound(B, S, H, P, N, dtype):
@@ -2280,6 +2486,231 @@ def lm_phases(dev, seed: int, arch: str) -> dict:
     return main_launches
 
 
+#: the training phase: h2o-danube-1.8b whole (24 layers, published widths)
+#: through ``launch.train.main``, B = 4 sequences of 2048 tokens, 6 steps
+#: with a checkpoint every 3, then resumed to step 8; the f32 check on its
+#: first TRAIN_F32_LAYERS layers at B = 2 x 2048
+TRAIN_ARCH, TRAIN_B, TRAIN_S = "h2o-danube-1.8b", 4, 2048
+TRAIN_STEPS, TRAIN_RESUME, TRAIN_CKPT_EVERY = 6, 8, 3
+TRAIN_F32_LAYERS, TRAIN_F32_B = 4, 2
+#: a training step's kernel groups: the flash forward (with the remat
+#: recompute), the backward kernel's three passes, cuBLAS's products
+TRAIN_GROUPS = {
+    "flash_fwd_ms": lambda n: "attn_kernel" in n,
+    "flash_bwd_ms": lambda n: n.startswith("void (anonymous namespace)::bwd_")
+    or "bwd_delta_kernel" in n or "bwd_dkdv_kernel" in n
+    or "bwd_dq_kernel" in n,
+    "gemm_ms": LM_GROUPS["gemm_ms"],
+}
+
+
+def bits_equal(a, b) -> bool:
+    """Two tensors hold the same bits (-0.0 and 0.0 differ)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(view[t.element_size()]) for t in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def lm_train_phases(dev, seed: int) -> dict:
+    """Training on the card.  The f32 check: danube-1.8b's first
+    TRAIN_F32_LAYERS layers at full width, B = 2 x 2048: the loss and every
+    gradient of the kernel path (flash forward and backward kernels)
+    against the plain path (``plain_kernels``) within 2e-3 relative L2,
+    with 2 forward and 1 backward launch a layer, and 2 microbatches
+    against 1 under the reference test's 5e-3 / 5e-2.  The main path:
+    ``launch.train.main`` on the whole model in bf16, 6 steps checkpointed
+    every 3, resumed to step 8, with 48 forward and 24 backward launches a
+    step, finite losses, and the checkpoint of step 6 restored bit for bit
+    equal to the state that was saved; step ms, tokens/s, peak memory and
+    the device time of a step by group.  Then one ``--compress`` step and
+    one factored-AdamW step, each finite.  Returns the main path's
+    launches by kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.interop import lm_leaves, map_lm_tree
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.common import init_params
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.train.train_step import (make_loss_and_grad,
+                                              make_train_state, train_step_fn)
+
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+
+    # ---- the f32 check: kernel path against plain path --------------------
+    cfg32 = cfg.scaled(n_layers=TRAIN_F32_LAYERS, dtype=torch.float32)
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg32,
+                         dev)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in host_batch(
+        cfg32, DataConfig(seed=seed, global_batch=TRAIN_F32_B,
+                          seq_len=TRAIN_S), 0).items()}
+    fa_ops.reset_launches()
+    loss_k, _, grads_k = make_loss_and_grad(cfg32, 1)(params, batch)
+    torch.cuda.synchronize()
+    f32_launches = (fa_ops.launches(), fa_ops.bwd_launches())
+    check(f32_launches == (2 * TRAIN_F32_LAYERS, TRAIN_F32_LAYERS),
+          f"f32 check: flash launches (forward, backward) {f32_launches}, "
+          f"expected {(2 * TRAIN_F32_LAYERS, TRAIN_F32_LAYERS)}")
+    with plain_kernels():
+        loss_p, _, grads_p = make_loss_and_grad(cfg32, 1)(params, batch)
+    gk = {"/".join(p) + ("" if i is None else f"[{i}]"): t
+          for p, i, t in lm_leaves(grads_k)}
+    gp = {"/".join(p) + ("" if i is None else f"[{i}]"): t
+          for p, i, t in lm_leaves(grads_p)}
+    grad_err = {k: rel_l2(gk[k], gp[k]) for k in gk}
+    worst = max(grad_err, key=grad_err.get)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    del grads_p, gp
+    loss_2, _, grads_2 = make_loss_and_grad(cfg32, 2)(params, batch)
+    micro_loss = abs(float(loss_2) - float(loss_k))
+    micro_over = 0.0
+    for (_, _, a), (_, _, b) in zip(lm_leaves(grads_2), lm_leaves(grads_k)):
+        micro_over = max(micro_over, float(((a - b).abs()
+                                            - (5e-3 + 5e-2 * b.abs())).max()))
+    attn_grads = [gk[k] for k in gk if "/attn/" in "/" + k]
+    emit("lm_train", step="f32_check", arch=cfg.name,
+         n_layers=TRAIN_F32_LAYERS, B=TRAIN_F32_B, S=TRAIN_S,
+         loss_kernel=float(loss_k), loss_plain=float(loss_p),
+         loss_rel=loss_err, grad_rel_l2_max=grad_err[worst],
+         grad_rel_l2_worst_leaf=worst, tol=2e-3,
+         attention_grads_nonzero=all(float(g.abs().max()) > 0
+                                     for g in attn_grads),
+         launches={"forward": f32_launches[0], "backward": f32_launches[1]},
+         microbatch_loss_diff=micro_loss, microbatch_excess=micro_over)
+    check(loss_err <= 2e-3 and grad_err[worst] <= 2e-3,
+          f"f32 train check: loss rel {loss_err}, gradient {worst} rel L2 "
+          f"{grad_err[worst]}")
+    check(all(float(g.abs().max()) > 0 for g in attn_grads),
+          "an attention weight got no gradient on the kernel path")
+    check(micro_loss < 5e-3 and micro_over <= 0,
+          f"2 microbatches vs 1: loss {micro_loss}, excess {micro_over}")
+    del params, batch, grads_k, grads_2, gk, attn_grads
+    torch.cuda.empty_cache()
+
+    # ---- the main path: launch.train on the whole model, bf16 -------------
+    root = ROOT / "artifacts"
+    root.mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root)
+    argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S), "--ckpt-dir", ckpt, "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--log-every", "1", "--seed", str(seed)]
+    try:
+        fa_ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out1 = train_main(argv + ["--steps", str(TRAIN_STEPS)])
+        run1_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        run1 = (fa_ops.launches(), fa_ops.bwd_launches())
+        check(run1 == (2 * L * TRAIN_STEPS, L * TRAIN_STEPS),
+              f"train: flash launches (forward, backward) {run1} in "
+              f"{TRAIN_STEPS} steps, expected {2 * L} and {L} a step")
+        saved = out1.pop("state")
+        shutil.rmtree(Path(ckpt) / f"step_{TRAIN_CKPT_EVERY:08d}")
+        fa_ops.reset_launches()
+        t0 = time.perf_counter()
+        out2 = train_main(argv + ["--steps", str(TRAIN_RESUME)])
+        run2_s = time.perf_counter() - t0
+        run2 = (fa_ops.launches(), fa_ops.bwd_launches())
+        n2 = TRAIN_RESUME - TRAIN_STEPS
+        check(run2 == (2 * L * n2, L * n2) and len(out2["losses"]) == n2,
+              f"resume: launches {run2}, losses {out2['losses']}")
+        del out2["state"]
+        losses = out1["losses"] + out2["losses"]
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        # the checkpoint of step TRAIN_STEPS against what was saved
+        template = map_lm_tree(saved, lambda _p, _i, t: torch.empty_like(t))
+        t0 = time.perf_counter()
+        restored, manifest = restore(ckpt, template, step=TRAIN_STEPS)
+        restore_s = time.perf_counter() - t0
+        pairs = list(zip(lm_leaves(restored), lm_leaves(saved)))
+        differ = [("/".join(p), i) for (p, i, a), (_, _, b) in pairs
+                  if not bits_equal(a, b)]
+        check(not differ and manifest["extra"]["step"] == TRAIN_STEPS,
+              f"restored state differs from the saved one at {differ[:5]}")
+        del restored, template, pairs
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    step_s = sorted(out1["step_s"][1:] + out2["step_s"][1:])
+    step_ms = step_s[len(step_s) // 2] * 1e3
+    emit("lm_train", step="main_path", arch=cfg.name, n_layers=L,
+         params=out1["params"], dtype="bfloat16", B=TRAIN_B, S=TRAIN_S,
+         steps=TRAIN_STEPS, resumed_to=TRAIN_RESUME, losses=losses,
+         first_loss=out1["first_loss"], last_loss=out2["last_loss"],
+         step_ms=step_ms, step_ms_all=[x * 1e3 for x in out1["step_s"]
+                                       + out2["step_s"]],
+         tokens_per_s=TRAIN_B * TRAIN_S / step_ms * 1e3,
+         peak_memory_bytes=peak, run_s=run1_s, resume_run_s=run2_s,
+         restore_s=restore_s, restored_bit_equal=True,
+         launches_per_step={"forward": run1[0] // TRAIN_STEPS,
+                            "backward": run1[1] // TRAIN_STEPS})
+
+    # ---- where a step's time goes -----------------------------------------
+    params, opt_state = saved["params"], saved["opt"]["opt"]
+    opt = OptConfig(total_steps=TRAIN_STEPS)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in host_batch(
+        cfg, DataConfig(seed=seed, global_batch=TRAIN_B, seq_len=TRAIN_S),
+        TRAIN_RESUME).items()}
+    total_grad = make_loss_and_grad(cfg, 1)
+    grads = None
+
+    def grad_part():
+        nonlocal grads
+        grads = total_grad(params, batch)[2]
+    grad_prof = device_profile(grad_part, TRAIN_GROUPS)
+    opt_prof = device_profile(lambda: adamw_update(params, grads, opt_state,
+                                                   opt))
+    busy = grad_prof["device_busy_ms"]
+    named = sum(grad_prof[g] for g in TRAIN_GROUPS)
+    emit("lm_breakdown", arch=cfg.name, step="train step", B=TRAIN_B,
+         S=TRAIN_S, grad=grad_prof, optimizer=opt_prof,
+         groups_ms={**{g: grad_prof[g] for g in TRAIN_GROUPS},
+                    "optimizer_ms": opt_prof["device_busy_ms"],
+                    "rest_ms": busy - named})
+    del params, opt_state, saved, grads, batch
+    torch.cuda.empty_cache()
+
+    # ---- one int8-compressed step and one factored step --------------------
+    fa_ops.reset_launches()
+    out3 = train_main(["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B),
+                       "--seq", str(TRAIN_S), "--steps", "1", "--compress",
+                       "--seed", str(seed)])
+    del out3["state"]
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         dev)
+    fopt = OptConfig(total_steps=1, warmup_steps=1, factored=True)
+    fstate = make_train_state(cfg, fopt, params)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in host_batch(
+        cfg, DataConfig(seed=seed, global_batch=TRAIN_B, seq_len=TRAIN_S),
+        0).items()}
+    params, fstate, fm = train_step_fn(cfg, fopt)(params, fstate, batch)
+    factored_loss = float(fm["total_loss"])
+    finite = all(bool(torch.isfinite(t).all())
+                 for _, _, t in lm_leaves(params))
+    extra = (fa_ops.launches(), fa_ops.bwd_launches())
+    emit("lm_train", step="variants", compress_loss=out3["last_loss"],
+         factored_loss=factored_loss, factored_params_finite=finite,
+         launches={"forward": extra[0], "backward": extra[1]})
+    check(math.isfinite(out3["last_loss"]) and math.isfinite(factored_loss)
+          and finite, f"compress {out3['last_loss']}, factored "
+                      f"{factored_loss}, params finite {finite}")
+    del params, fstate, batch
+    torch.cuda.empty_cache()
+    return {"flash_attention": run1[0] + run2[0],
+            "flash_attention_bwd": run1[1] + run2[1]}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2327,21 +2758,27 @@ def main(argv=None) -> int:
         "dse": dse_phase(rng),
         "traced": traced_phase(dev, rng)}
     flash = flash_phases(dev, sass["flash_attention"])
+    flash_bwd = flash_bwd_phases(dev)
     ssd = ssd_phases(dev, sass["mamba2_ssd"])
     wkv = wkv_phases(dev, sass["rwkv6"])
     launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0}
     for arch in LM_ARCHS:
         for k, n in lm_phases(dev, args.seed, arch).items():
             launches[k] += n
-    flash["launches"] = launches["flash_attention"]
+    train = lm_train_phases(dev, args.seed)
+    flash["launches_by_path"] = {"serving": launches["flash_attention"],
+                                 "training": train["flash_attention"]}
+    flash["launches"] = sum(flash["launches_by_path"].values())
+    flash_bwd["launches"] = train["flash_attention_bwd"]
     ssd["launches"] = launches["mamba2_ssd"]
     wkv["launches"] = launches["rwkv6"]
-    for entry in (flash, ssd, wkv):
-        check(entry["launches"] > 0, f"the serving path never launched "
+    for entry in (flash, flash_bwd, ssd, wkv):
+        check(entry["launches"] > 0, f"the main path never launched "
                                      f"{entry['name']}")
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port imported jax or the JAX package")
-    print(json.dumps({"kernels": [cgra, flash, ssd, wkv]}), flush=True)
+    print(json.dumps({"kernels": [cgra, flash, flash_bwd, ssd, wkv]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,14 +13,17 @@ JSON (``Fabric.to_json``).  Nothing here imports another package.
   * ``linked_state`` / ``linked_config`` — the lowered ``LinkedConfig``,
   * ``lm_params_from_state`` — a language model's parameters, from the
     reference's stacked numpy arrays, so both packages compute on the same
-    weights.
+    weights; ``lm_state_from_params`` is its inverse, for the parameters
+    and any tree that mirrors them (gradients, optimizer moments), and
+    ``lm_leaves`` / ``map_lm_tree`` name every tensor of such a tree by its
+    place in the reference's tree (checkpoints and the optimizer use them).
 
 The ``*_state`` readers take any object with the same attribute names, so
 they read the reference's objects as well as the port's.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -156,3 +159,130 @@ def lm_params_from_state(state: Dict[str, object], cfg: ModelConfig,
                          for n in ("attn", ffn, "norm1", "norm2")}
                         for i in range(L)]
     return params
+
+
+#: a tensor's place in the reference's tree: its key path, and its index on
+#: the stacked ``(L, ...)`` axis (None for a leaf the reference does not
+#: stack)
+Place = Tuple[Tuple[str, ...], Optional[int]]
+
+
+def _layers_prefix(tree: Dict[str, Any]) -> Tuple[str, ...]:
+    """Where the reference keeps ``tree["layers"]``: under ``mamba``
+    (zamba2, which has a ``shared`` block), under ``rwkv`` (an RWKV-6 block
+    has ``mix``), else at the top level (dense, moe, hubert, paligemma)."""
+    if "shared" in tree:
+        return ("mamba",)
+    layers = tree["layers"]
+    if layers and "mix" in layers[0]:
+        return ("rwkv",)
+    return ()
+
+
+def map_lm_tree(tree, fn: Callable[[Tuple[str, ...], Optional[int], Any],
+                                   Any], path: Tuple[str, ...] = ()):
+    """A copy of ``tree`` (nested dicts, lists, tuples) with every leaf
+    replaced by ``fn(path, layer, leaf)``, where ``(path, layer)`` is the
+    leaf's place in the reference's layout.  Dict keys and list indices
+    extend the path (as ``str``), except in a dict that holds a list under
+    ``"layers"`` (the port's model parameters, or a tree that mirrors
+    them): there entry i of ``layers`` is layer i of the stacked leaves the
+    reference keeps at the top, under ``mamba`` or under ``rwkv``
+    (``_layers_prefix``), and zamba2's ``shared`` block is layer 0 of the
+    reference's ``shared_attn``, ``shared_mlp``, ``shared_norm1`` and
+    ``shared_norm2``."""
+    def walk(node, path, layer):
+        if isinstance(node, dict):
+            if isinstance(node.get("layers"), list) and layer is None:
+                return lm_node(node, path)
+            return {k: walk(v, path + (str(k),), layer)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (str(i),), layer)
+                              for i, v in enumerate(node))
+        return fn(path, layer, node)
+
+    def lm_node(node, path):
+        out = {}
+        prefix = path + _layers_prefix(node)
+        for k, v in node.items():
+            if k == "layers":
+                out[k] = [walk(lp, prefix, i) for i, lp in enumerate(v)]
+            elif k == "shared" and "layers" in node:
+                out[k] = {n: walk(sub, path + (f"shared_{n}",), 0)
+                          for n, sub in v.items()}
+            else:
+                out[k] = walk(v, path + (str(k),), None)
+        return out
+
+    return walk(tree, tuple(path), None)
+
+
+def lm_leaves(tree) -> List[Tuple[Tuple[str, ...], Optional[int], Any]]:
+    """Every leaf of ``tree`` with its place in the reference's layout,
+    ``(path, layer, leaf)``, in the tree's order (``map_lm_tree``)."""
+    out: List[Tuple[Tuple[str, ...], Optional[int], Any]] = []
+    map_lm_tree(tree, lambda p, i, leaf: out.append((p, i, leaf)))
+    return out
+
+
+def lm_groups(tree) -> Dict[Tuple[str, ...], List[Tuple[Optional[int],
+                                                        Any]]]:
+    """The leaves of ``tree`` by the reference leaf they form: key path ->
+    [(layer, leaf)] in layer order, one entry with layer None for a leaf
+    the reference does not stack (``map_lm_tree``)."""
+    out: Dict[Tuple[str, ...], list] = {}
+    for path, layer, leaf in lm_leaves(tree):
+        out.setdefault(path, []).append((layer, leaf))
+    for entries in out.values():
+        if entries[0][0] is not None:
+            entries.sort(key=lambda e: e[0])
+    return out
+
+
+def at_path(tree, path: Tuple[str, ...]):
+    """The node of nested dicts ``tree`` at key path ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def nest(flat: Dict[Tuple[str, ...], Any]) -> Dict[str, Any]:
+    """Nested dicts from ``{key path: value}``."""
+    out: Dict[str, Any] = {}
+    for path, value in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+    return out
+
+
+def _numpy(t) -> np.ndarray:
+    """A tensor as numpy, bf16 (which numpy has not) as its exact f32."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def lm_state_from_params(params, cfg: Optional[ModelConfig] = None
+                         ) -> Dict[str, object]:
+    """The reference's layout of the port's parameters, or of any tree that
+    mirrors them (gradients, AdamW moments): nested dicts of numpy arrays,
+    each per-layer weight stacked on a leading ``(L, ...)`` axis, zamba2's
+    shared block on a ``(1, ...)`` one (``map_lm_tree``).  bf16 tensors
+    come out as their exact f32 values (numpy has no bf16; cast them to the
+    reference's dtype there).  The inverse of ``lm_params_from_state``;
+    ``cfg``, when given, checks the number of layers."""
+    flat = {}
+    for path, entries in lm_groups(params).items():
+        if entries[0][0] is None:
+            flat[path] = _numpy(entries[0][1])
+        else:
+            flat[path] = np.stack([_numpy(t) for _, t in entries])
+    if cfg is not None and isinstance(params, dict) and "layers" in params \
+            and len(params["layers"]) != cfg.n_layers:
+        raise ValueError(f"the parameters hold {len(params['layers'])} "
+                         f"layers, the config has {cfg.n_layers}")
+    return nest(flat)

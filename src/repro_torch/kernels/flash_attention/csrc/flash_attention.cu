@@ -19,7 +19,9 @@
 // which a row sees no key gives exp(-inf - -inf) = NaN; with -1e30 it gives
 // p = 1, which the later corr = exp(-1e30 - m) = 0 wipes out); the output
 // is acc / max(l, 1e-30) in q's dtype (f32 or bf16, rounded to nearest
-// even).
+// even).  Given an f32 lse of shape (B, H, Sq), both forms also write each
+// row's log-sum-exp of its scaled scores, m + log(max(l, 1e-30)) in natural
+// units, which the backward (flash_attention_bwd.cu) recomputes P from.
 //
 // The f32 form.  What bounds it on an H100 SXM (NVIDIA data sheet):
 // operations, 4 * D flops per (query, key) pair that the mask keeps over
@@ -51,8 +53,8 @@
 
 // the bf16 form (flash_attention_wgmma.cu)
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int Sq, int Skv, int H,
-                                 int KV, int D, int causal, int window,
+                                 void* o, float* lse, int B, int Sq, int Skv,
+                                 int H, int KV, int D, int causal, int window,
                                  int prefix_len, float scale,
                                  cudaStream_t s);
 
@@ -76,9 +78,9 @@ constexpr size_t smem_floats() {
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-            int H, int KV, int D, int causal, int window, int prefix_len,
-            float scale) {
+            const float* __restrict__ v, float* __restrict__ o,
+            float* __restrict__ lse, int Sq, int Skv, int H, int KV, int D,
+            int causal, int window, int prefix_len, float scale) {
     extern __shared__ float4 smem4[];
     float* Qt = reinterpret_cast<float*>(smem4);
     float* Kt = Qt + DP * kLQ;
@@ -240,6 +242,8 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int r = q0 + ty * 4 + i;
         if (r >= Sq) continue;
         const float den = fmaxf(l[i], 1e-30f);
+        if (lse != nullptr && tx == 0)
+            lse[static_cast<size_t>(blockIdx.y) * Sq + r] = m[i] + logf(den);
 #pragma unroll
         for (int n = 0; n < NC; ++n)
 #pragma unroll
@@ -253,9 +257,9 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, int D, int causal, int window,
-           int prefix_len, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int KV, int D, int causal,
+           int window, int prefix_len, float scale, cudaStream_t stream) {
     const size_t smem = sizeof(float) * smem_floats<DP>();
     cudaError_t err = cudaFuncSetAttribute(
         attn_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -264,23 +268,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
     attn_kernel<DP><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
-        D, causal, window, prefix_len, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, H,
+        KV, D, causal, window, prefix_len, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Skv, int H, int KV, int D, int causal, int window,
-             int prefix_len, float scale, cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int Sq, int Skv, int H, int KV, int D, int causal,
+             int window, int prefix_len, float scale, cudaStream_t s) {
     switch ((D + 31) / 32) {
-        case 1: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 2: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 3: return launch<96>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 4: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 5: return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 6: return launch<192>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 7: return launch<224>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 8: return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 1: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 2: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 3: return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 4: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 5: return launch<160>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 6: return launch<192>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 7: return launch<224>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 8: return launch<256>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -288,24 +292,26 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype: 0 = float32 (the form above), 1 = bfloat16 (the tensor-core form).
-// prefix_len >= 0 (0: no prefix; read only when causal).  All tensors
+// prefix_len >= 0 (0: no prefix; read only when causal).  lse: null, or an
+// f32 (B, H, Sq) that receives each row's log-sum-exp.  All tensors
 // contiguous, on the device of the current context; the output
 // is written in q's dtype.  Returns the CUDA error of the launch (0 when it
 // was accepted), or -(a CUresult) when the bf16 form cannot make a tensor
 // map.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
+                                      const void* v, void* o, float* lse,
+                                      int dtype,
                                       int B, int Sq, int Skv, int H, int KV,
                                       int D, int causal, int window,
                                       int prefix_len, float scale,
                                       void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return dispatch(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window,
+        return dispatch(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window,
                         prefix_len, scale, s);
     if (dtype == 1)
-        return flash_attention_wgmma_launch(q, k, v, o, B, Sq, Skv, H, KV, D,
-                                            causal, window, prefix_len, scale,
-                                            s);
+        return flash_attention_wgmma_launch(q, k, v, o, lse, B, Sq, Skv, H,
+                                            KV, D, causal, window, prefix_len,
+                                            scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,7 +10,8 @@
 // the query at qp iff kp < Skv, and (causal) qp >= kp or kp < prefix_len,
 // and (window > 0) qp - kp < window, with no Skv - Sq offset; m, l and the
 // accumulator are f32; masked scores are the finite -1e30; the output is
-// acc / max(l, 1e-30) rounded to nearest even.  One rounding differs: the
+// acc / max(l, 1e-30) rounded to nearest even; an lse, when given, gets
+// each row's log-sum-exp.  One rounding differs: the
 // product of two bf16 values is exact in f32, so the score is
 // (q . k) * scale, where the TPU kernel scales q first.
 //
@@ -116,9 +117,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
-                  __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
-                  int KV, int D, int causal, int window, int prefix_len,
-                  float scale_log2) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int Sq, int Skv, int H, int KV, int D, int causal,
+                  int window, int prefix_len, float scale_log2) {
     using T = Tiles<DP>;
     constexpr int kBK = T::kBK;
     extern __shared__ uint8_t smem_raw[];
@@ -285,6 +286,10 @@ attn_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int qp = qw0 + row0 + 8 * r;
         if (qp >= Sq) continue;
         const float den = fmaxf(l[r], 1e-30f);
+        // m is in log2 units of the scaled scores: back to natural ones
+        if (lse != nullptr && lane % 4 == 0)
+            lse[static_cast<size_t>(bh) * Sq + qp] =
+                (m[r] + log2f(den)) * 0.6931471805599453f;
         __nv_bfloat16* orow =
             o + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D;
 #pragma unroll
@@ -314,9 +319,9 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, int D, int causal, int window,
-           int prefix_len, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int KV, int D, int causal,
+           int window, int prefix_len, float scale, cudaStream_t stream) {
     using T = Tiles<DP>;
     CUtensorMap tq, tk, tv;
     int err = make_map(&tq, q, B, Sq, H, D, kRows);
@@ -329,8 +334,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (set != cudaSuccess) return static_cast<int>(set);
     const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
     attn_kernel_wgmma<DP><<<grid, kThreads, T::kSmem, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KV, D, causal,
-        window, prefix_len, scale * 1.4426950408889634f);
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, KV, D,
+        causal, window, prefix_len, scale * 1.4426950408889634f);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -338,30 +343,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // The bf16 form, called by flash_attention.cu's entry point: D a multiple
 // of 8 up to 256, tensors contiguous and 16-byte aligned (the wrapper pads
-// D and checks the rest).  Returns the CUDA error of the launch, or -(a CUresult) when a
-// tensor map cannot be made.
+// D and checks the rest); lse null or an f32 (B, H, Sq).  Returns the CUDA
+// error of the launch, or -(a CUresult) when a tensor map cannot be made.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int Sq, int Skv, int H,
-                                 int KV, int D, int causal, int window,
+                                 void* o, float* lse, int B, int Sq, int Skv,
+                                 int H, int KV, int D, int causal, int window,
                                  int prefix_len, float scale,
                                  cudaStream_t s) {
     switch ((D + 15) / 16) {
-        case 1: return launch<16>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 2: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 3: return launch<48>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 4: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 5: return launch<80>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 6: return launch<96>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 7: return launch<112>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 8: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 9: return launch<144>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 10: return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 11: return launch<176>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 12: return launch<192>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 13: return launch<208>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 14: return launch<224>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 15: return launch<240>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
-        case 16: return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 1: return launch<16>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 2: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 3: return launch<48>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 4: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 5: return launch<80>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 6: return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 7: return launch<112>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 8: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 9: return launch<144>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 10: return launch<160>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 11: return launch<176>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 12: return launch<192>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 13: return launch<208>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 14: return launch<224>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 15: return launch<240>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
+        case 16: return launch<256>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, prefix_len, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

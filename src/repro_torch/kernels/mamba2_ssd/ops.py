@@ -120,11 +120,19 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     of 8 elements; x, B or C that is not so (a state of 12, an odd offset)
     is copied first, contiguous and zero-padded (``_tma_readable``), and
     still runs that form.  f32 runs the CUDA-core form.  CPU tensors run
-    the plain version."""
+    the plain version.  A CUDA input that requires grad (with grad enabled)
+    raises ``NotImplementedError``: there is no backward kernel yet, and a
+    detached output would train nothing silently."""
     global _launches
     Bsz, S, H, P, N = _check(x, dt, A_log, B, C, D)
     if x.device.type == "cpu":
         return ssd_torch(x, dt, A_log, B, C, D, chunk=CHUNK)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in
+                                       (x, dt, A_log, B, C, D)):
+        raise NotImplementedError(
+            "mamba2_ssd has no backward kernel yet (ROADMAP Queue A, A12): "
+            "zamba2 trains on the CPU only; its output on the card would "
+            "carry no gradient")
     if x.device.type != "cuda":
         raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
     if x.dtype not in DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:

@@ -135,11 +135,19 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     offset, a head of 12) is copied first, contiguous and zero-padded
     (``_tma_readable``), and still runs that form.  f32 runs the CUDA-core
     form over chunks of 32.  CPU tensors run the plain version over chunks
-    of ``CHUNK``."""
+    of ``CHUNK``.  A CUDA input that requires grad (with grad enabled)
+    raises ``NotImplementedError``: there is no backward kernel yet, and a
+    detached output would train nothing silently."""
     global _launches
     B, S, H, K = _check(r, k, v, log_w, u)
     if r.device.type == "cpu":
         return wkv6_torch(r, k, v, log_w, u, chunk=CHUNK)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in
+                                       (r, k, v, log_w, u)):
+        raise NotImplementedError(
+            "rwkv6 has no backward kernel yet (ROADMAP Queue A, A13): "
+            "rwkv6 trains on the CPU only; its output on the card would "
+            "carry no gradient")
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
     if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:

@@ -22,16 +22,22 @@ zamba2: embed -> groups of ``shared_attn_every`` Mamba-2 layers, each group
         -> tied logits.
 
 A Python loop over ``params["layers"]`` takes the place of the reference's
-``lax.scan``.  The decode cache is updated in place, where the reference
-donates it to ``jit``.
+``lax.scan``.  When a parameter requires grad (training), each layer (each
+hubert and rwkv6 block, each Mamba-2 layer of zamba2) runs under
+``torch.utils.checkpoint``: its activations are recomputed in the backward
+pass, as the reference's ``jax.checkpoint`` of the scanned block does.
+Serving, whose parameters require no grad, runs the layers as they are.
+The decode cache is updated in place, where the reference donates it to
+``jit``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import ModelConfig, check_family
+from repro_torch.models.common import ModelConfig, _leaves, check_family
 from repro_torch.models.layers import (GLOBAL_WINDOW, attention_block,
                                        decode_attention, mlp, rms_norm, rope)
 from repro_torch.models.mamba2 import mamba2_layer
@@ -48,6 +54,16 @@ def layer_windows(cfg: ModelConfig) -> List[int]:
     if cfg.sliding_window:
         return [cfg.sliding_window] * L
     return [GLOBAL_WINDOW] * L
+
+
+def _remat(params):
+    """How to call a layer: under ``torch.utils.checkpoint`` (non-reentrant,
+    its activations recomputed in the backward pass) when grad is enabled
+    and a parameter requires grad, else directly."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in _leaves(params)):
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda fn, *args: fn(*args)
 
 
 def _embed(params, cfg, tokens):
@@ -87,13 +103,17 @@ def forward(params, cfg: ModelConfig, tokens=None, *, features=None,
         prefix_len = img_embeds.shape[1]
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lp, win in zip(params["layers"], layer_windows(cfg)):
+
+    def block(h, aux, lp, win):
         h = h + attention_block(rms_norm(h, lp["norm1"]), lp["attn"], cfg,
                                 positions, causal=cfg.causal, window=win,
                                 prefix_len=prefix_len, block_kv=block_kv)
         f, a = _ffn(rms_norm(h, lp["norm2"]), lp, cfg)
-        h = h + f
-        aux = aux + a
+        return h + f, aux + a
+
+    run = _remat(params)
+    for lp, win in zip(params["layers"], layer_windows(cfg)):
+        h, aux = run(block, h, aux, lp, win)
     logits = _logits(params, cfg, h)
     if prefix_len is not None:
         logits = logits[:, prefix_len:]
@@ -107,11 +127,16 @@ def _forward_hubert(params, cfg, features, feat_mask, block_kv: int):
         h = torch.where(feat_mask[..., None],
                         params["mask_embed"].to(cfg.dtype)[None, None, :], h)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    for lp in params["layers"]:
+
+    def block(h, lp):
         h = h + attention_block(rms_norm(h, lp["norm1"]), lp["attn"], cfg,
                                 positions, causal=False, window=GLOBAL_WINDOW,
                                 block_kv=block_kv)
-        h = h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
+        return h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
+
+    run = _remat(params)
+    for lp in params["layers"]:
+        h = run(block, h, lp)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, cfg, h), aux
 
@@ -129,8 +154,13 @@ def _forward_rwkv6(params, cfg, tokens):
     h = _embed(params, cfg, tokens)
     zeros = torch.zeros((h.shape[0], cfg.d_model), dtype=cfg.dtype,
                         device=h.device)
+
+    def block(h, lp):
+        return rwkv6_layer(h, zeros, zeros, lp, cfg)[0]
+
+    run = _remat(params)
     for lp in params["layers"]:
-        h, _, _ = rwkv6_layer(h, zeros, zeros, lp, cfg)
+        h = run(block, h, lp)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, cfg, h), aux
 
@@ -182,9 +212,14 @@ def _forward_zamba2(params, cfg, tokens, block_kv: int):
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     k, G = _shared_groups(cfg)
     sp = params["shared"]
+
+    def layer(h, lp):
+        return mamba2_layer(h, lp, cfg)[0]
+
+    run = _remat(params)
     for g in range(G):
         for lp in params["layers"][g * k:(g + 1) * k]:
-            h, _, _ = mamba2_layer(h, lp, cfg)
+            h = run(layer, h, lp)
         h = h + attention_block(rms_norm(h, sp["norm1"]), sp["attn"], cfg,
                                 positions, causal=True, window=GLOBAL_WINDOW,
                                 block_kv=block_kv)

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package ``repro``, and importing it initialises no CUDA context.
+"""The PyTorch port stands alone: it imports neither ``jax`` (nor
+``ml_dtypes``, which the card's machine does not have) nor the JAX package
+``repro``, and importing it initialises no CUDA context.
 
 The import check runs in a subprocess, because this test session's
 conftest has already imported ``repro`` (and with it ``jax``).
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def test_import_pulls_in_no_jax_and_no_cuda():
@@ -37,8 +38,12 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "import repro_torch.core.dfg, repro_torch.core.kernel_lib\n"
         "import repro_torch.configs, repro_torch.configs.shapes\n"
         "import repro_torch.serve.serve_step, repro_torch.launch.serve\n"
+        "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
+        "import repro_torch.data.pipeline, repro_torch.checkpoint.checkpoint\n"
+        "import repro_torch.runtime.fault_tolerance, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "from repro_torch.launch.mesh import make_host_mesh\n"
         "assert len(make_host_mesh('cpu', 2)) == 2\n"
