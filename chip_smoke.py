@@ -103,11 +103,14 @@ Each phase prints one JSON line:
                    must catch, kernel, plain and SDPA ms, the bound
   flash_bwd        per case (causal, window, prefix-LM with a prefix inside
                    a tile, full; GQA and MQA; D = 64, 80, 128, 256; ragged;
-                   f32 and bf16): the backward kernel's dQ, dK and dV vs
-                   its plain version under the same bounds, three planted
-                   faults that must exceed them (one KV tile left out of
-                   dQ; the D term left out; the prefix ignored), kernel,
-                   plain and SDPA-backward ms, the bound
+                   bf16: the tensor-core form; f32: the CUDA-core form):
+                   the backward kernel's dQ, dK and dV vs its plain version
+                   under the same bounds, three planted faults that must
+                   exceed them (one KV tile left out of dQ; the D term left
+                   out; the prefix ignored), kernel, plain and
+                   SDPA-backward ms, the bound; two calls at danube's shape
+                   bit-identical; HGMMA in the bf16 product kernels' SASS
+                   and no ptxas spill in the bf16 form (checked)
   ssd              per case (bf16: the tensor-core form; f32: the
                    CUDA-core form): the Mamba-2 SSD kernel vs its plain
                    version (the same per-element bounds) on steps whose state
@@ -476,10 +479,10 @@ def sass_counts(lib: Path):
     return counts
 
 
-def build_all() -> dict:
+def build_all():
     """Build every kernel library at once, one nvcc each, all started
     together; one ``build`` line per kernel.  Returns each library's SASS
-    counts (``sass_counts``)."""
+    counts (``sass_counts``) and its ptxas lines (``ptxas_line``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.cgra_exec import ops as cgra_ops
@@ -495,7 +498,7 @@ def build_all() -> dict:
     kernels = (("cgra_exec", cgra_ops), ("flash_attention", fa_ops),
                ("flash_attention_bwd", SimpleNamespace(build=fa_ops.build_bwd)),
                ("mamba2_ssd", ssd_ops), ("rwkv6", wkv_ops))
-    sass = {}
+    sass, ptxas_by_lib = {}, {}
     with ThreadPoolExecutor(len(kernels)) as pool:
         futs = {name: pool.submit(timed, mod) for name, mod in kernels}
         for name, fut in futs.items():
@@ -505,10 +508,33 @@ def build_all() -> dict:
                      if "registers" in ln or "spill" in ln
                      or "Compiling entry" in ln]
             sass[name] = sass_counts(lib)
+            ptxas_by_lib[name] = ptxas
             extra = cgra_shared_memory() if name == "cgra_exec" else {}
             emit("build", kernel=name, seconds=round(seconds, 3),
                  library=lib.name, ptxas=ptxas, sass=sass[name], **extra)
-    return sass
+    return sass, ptxas_by_lib
+
+
+def ptxas_entries(lines) -> dict:
+    """Per entry of ``ptxas_line`` lines ("name<form>"): its registers and
+    its spill stores and loads in bytes."""
+    out, entry = {}, None
+    for line in lines:
+        if line.startswith("entry "):
+            entry = line[len("entry "):]
+            out[entry] = {"registers": None, "spill_bytes": 0}
+            continue
+        if entry is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            out[entry]["spill_bytes"] = int(spill.group(1)) + int(
+                spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[entry]["registers"] = int(regs.group(1))
+    return out
 
 
 def ptxas_line(line: str) -> str:
@@ -519,8 +545,8 @@ def ptxas_line(line: str) -> str:
     if not head:
         return line.strip()
     args = re.search(r"ILb([01])ELb([01])E", head.group(1))
-    cols = re.search(r"(?:wkv6_kernel_wgmma|attn_kernel(?:_wgmma)?)ILi(\d+)EE",
-                     head.group(1))
+    cols = re.search(r"(?:wkv6_kernel_wgmma|attn_kernel(?:_wgmma)?"
+                     r"|bwd_\w+_kernel_wgmma)ILi(\d+)EE", head.group(1))
     bwd = re.search(r"bwd_\w+_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
                     head.group(1))
     form = (f"<{args.group(1)},{args.group(2)}>" if args
@@ -1705,6 +1731,19 @@ FLASH_BWD_CASES = [
 ]
 FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention_bwd.cu")
+#: the backward's two forms: (kernels, the ones that do products, source);
+#: the C entry point is in FLASH_BWD_SOURCE
+FLASH_BWD_FORMS = {
+    "bfloat16": (["bwd_prep_kernel", "bwd_dkdv_kernel_wgmma",
+                  "bwd_dq_kernel_wgmma"],
+                 ["bwd_dkdv_kernel_wgmma", "bwd_dq_kernel_wgmma"],
+                 "src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention_bwd_wgmma.cu"),
+    "float32": (["bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel"],
+                ["bwd_dkdv_kernel", "bwd_dq_kernel"], FLASH_BWD_SOURCE),
+}
+#: the case whose two backward calls must give the same bits
+FLASH_BWD_REPEAT_CASE = "danube-train"
 
 
 def bwd_cat(grads):
@@ -1763,15 +1802,20 @@ def sdpa_bwd_ms(q, k, v, do, causal, window, prefix_len):
     return ms
 
 
-def flash_bwd_phases(dev) -> dict:
+def flash_bwd_phases(dev, sass, ptxas) -> dict:
     """The backward kernel against its plain version on every case
-    (``FLASH_BWD_CASES``: dQ, dK and dV under one per-element bound), with
-    three planted faults held to the same bound (they must fail it): one
-    KV tile left out of dQ (``bwd_dq_dropped_tile``), the D term left out
-    (o taken as 0), and on a prefix case the prefix ignored (its pairs
-    dropped, what a tile range blind to the prefix leaves out); the
-    kernel's time, the plain version's, SDPA's backward and the bound.
-    Returns the kernel's summary entry, less the main path's launches."""
+    (``FLASH_BWD_CASES``: dQ, dK and dV under one per-element bound; bf16
+    on the tensor-core form, f32 on the CUDA-core form), with three
+    planted faults held to the same bound (they must fail it): one KV tile
+    left out of dQ (``bwd_dq_dropped_tile``), the D term left out (o taken
+    as 0), and on a prefix case the prefix ignored (its pairs dropped,
+    what a tile range blind to the prefix leaves out); the kernel's time,
+    the plain version's, SDPA's backward and the bound; two calls at
+    ``FLASH_BWD_REPEAT_CASE`` giving the same bits.  Checks, where the
+    toolkit shows them, that each bf16 kernel that does products runs on
+    the tensor cores (HGMMA in its SASS) and that ptxas spills nothing in
+    the bf16 form.  Returns the kernel's summary entry, less the main
+    path's launches."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
@@ -1814,19 +1858,42 @@ def flash_bwd_phases(dev) -> dict:
             "library_ms": sdpa_bwd_ms(q, k, v, do, causal, window, prefix),
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
             "bytes": nbytes, "tflop_s": flops / res["ms"] / 1e9}
+        if name == FLASH_BWD_REPEAT_CASE:
+            calls = [ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+                     for _ in range(2)]
+            row["repeat_bit_identical"] = all(
+                bits_equal(a, b) for a, b in zip(*calls))
+            check(row["repeat_bit_identical"],
+                  f"flash_bwd {name}: two calls differ in their bits")
+            del calls
         emit("flash_bwd", **row)
         del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     lead = rows["danube-train"]
-    forms = {dt: {"kernels": ["bwd_delta_kernel", "bwd_dkdv_kernel",
-                              "bwd_dq_kernel"], "source": FLASH_BWD_SOURCE,
-                  "ms": rows[case]["ms"], "bound_ms": rows[case]["bound_ms"],
-                  "library_ms": rows[case]["library_ms"]}
-             for dt, case in (("bfloat16", "danube-train"),
-                              ("float32", "danube-train-f32"))}
+    entries = ptxas_entries(ptxas)
+    forms = {}
+    for dt, case in (("bfloat16", "danube-train"),
+                     ("float32", "danube-train-f32")):
+        kernels, products, source = FLASH_BWD_FORMS[dt]
+        forms[dt] = {
+            "kernels": kernels, "source": source, "ms": rows[case]["ms"],
+            "bound_ms": rows[case]["bound_ms"],
+            "library_ms": rows[case]["library_ms"],
+            "sass": ({n: sass.get(n) for n in kernels}
+                     if isinstance(sass, dict) else sass),
+            "ptxas": {e: v for e, v in entries.items()
+                      if e.split("<")[0] in kernels}}
+    bf16 = forms["bfloat16"]
+    if isinstance(sass, dict):
+        for n in FLASH_BWD_FORMS["bfloat16"][1]:
+            check(bool(sass.get(n)) and sass[n]["HGMMA"] > 0,
+                  f"{n} has no HGMMA in its SASS: {sass.get(n)}")
+    spilled = {e: v for e, v in bf16["ptxas"].items() if v["spill_bytes"]}
+    check(bool(bf16["ptxas"]) and not spilled,
+          f"the bf16 backward form spills: {spilled or 'no ptxas lines'}")
     return {
         "name": "flash_attention_bwd", "route": "cuda",
-        "source": FLASH_BWD_SOURCE,
+        "source": FLASH_BWD_FORMS["bfloat16"][2],
         "replaces": "src/repro/models/layers.py:77",
         "replaces_note": "XLA's autodiff of blockwise_attention; the JAX "
                          "package has no backward pallas_call",
@@ -2498,8 +2565,8 @@ TRAIN_F32_LAYERS, TRAIN_F32_B = 4, 2
 TRAIN_GROUPS = {
     "flash_fwd_ms": lambda n: "attn_kernel" in n,
     "flash_bwd_ms": lambda n: n.startswith("void (anonymous namespace)::bwd_")
-    or "bwd_delta_kernel" in n or "bwd_dkdv_kernel" in n
-    or "bwd_dq_kernel" in n,
+    or "bwd_delta_kernel" in n or "bwd_prep_kernel" in n
+    or "bwd_dkdv_kernel" in n or "bwd_dq_kernel" in n,
     "gemm_ms": LM_GROUPS["gemm_ms"],
 }
 
@@ -2743,7 +2810,7 @@ def main(argv=None) -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
-    sass = build_all()
+    sass, ptxas = build_all()
     rng = np.random.default_rng(args.seed)
     compiled, cgra = cgra_phases(dev, rng)
     cgra["launches_by_path"] = {
@@ -2758,7 +2825,8 @@ def main(argv=None) -> int:
         "dse": dse_phase(rng),
         "traced": traced_phase(dev, rng)}
     flash = flash_phases(dev, sass["flash_attention"])
-    flash_bwd = flash_bwd_phases(dev)
+    flash_bwd = flash_bwd_phases(dev, sass["flash_attention_bwd"],
+                                 ptxas["flash_attention_bwd"])
     ssd = ssd_phases(dev, sass["mamba2_ssd"])
     wkv = wkv_phases(dev, sass["rwkv6"])
     launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0}

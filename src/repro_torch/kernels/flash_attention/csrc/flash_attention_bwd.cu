@@ -1,10 +1,12 @@
 // flash_attention_bwd: the gradient of the port's flash attention, dQ, dK and
 // dV from q, k, v, the forward's output o, the output's gradient dO and the
 // forward's per-row log-sum-exp lse.  CUDA C++ for sm_90a, built with nvcc
-// into its own shared library with a plain C entry point
-// (repro_torch/kernels/build.py) and bound with ctypes
+// with flash_attention_bwd_wgmma.cu into its own shared library with a plain
+// C entry point (repro_torch/kernels/build.py) and bound with ctypes
 // (repro_torch/kernels/flash_attention/ops.py, whose autograd Function calls
-// it from its backward).
+// it from its backward).  The entry point (below) sends every bf16 call to
+// the tensor-core form (flash_attention_bwd_wgmma.cu) and every f32 call to
+// this file's CUDA-core form; neither falls back to the other.
 //
 // Replaces what the JAX package computes with XLA's autodiff of
 // src/repro/models/layers.py::blockwise_attention (its Pallas kernel,
@@ -15,9 +17,8 @@
 //   dQ = dS K / sqrt(D),    dK = dS^T Q / sqrt(D),    dV = P^T dO.
 // The mask is the forward's (flash_attention.cu): the key at kp is seen by
 // the query at qp iff kp < Skv, and (causal) qp >= kp or kp < prefix_len,
-// and (window > 0) qp - kp < window.  q, k, v, o, dO are f32 or bf16
-// (one dtype), read into f32; every product and sum is f32; dQ, dK, dV are
-// written once in that dtype (rounded to nearest even for bf16).  D is the
+// and (window > 0) qp - kp < window.  Here q, k, v, o, dO are f32; every
+// product and sum is f32; dQ, dK, dV are written once in f32.  D is the
 // caller's own head width (no padding), and the scale is 1/sqrt(D).
 //
 // What bounds it on an H100 SXM (NVIDIA data sheet): operations.  The
@@ -27,8 +28,8 @@
 // against 0.063 ms for its 211 MB of inputs and outputs at 3.35 TB/s.
 //
 // What the design does about it: it is simple and right, on the CUDA cores
-// in f32 (no tensor cores; a tensor-core form is the next step), and it
-// needs no atomics, so it is deterministic.  Three passes:
+// in f32 (the bf16 form runs on the tensor cores), and it needs no
+// atomics, so it is deterministic.  Three passes:
 //   1. Drow = rowsum(dO o O), one warp a row.
 //   2. One block of 256 threads per (batch, KV head, tile of kBK keys): the
 //      tile's K and V stay in shared memory while the block walks the G
@@ -53,7 +54,6 @@
 // memory under 227 KB (217 KB at D = 256 in pass 2) and the accumulators
 // at 32 floats a thread each.  The per-element mask is applied on every
 // tile walked, so the tile ranges only skip work.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -79,13 +79,7 @@ struct Tiles {
 };
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool kept(int qp, int kp, int Sq, int Skv,
                                      int causal, int window, int prefix_len) {
@@ -425,12 +419,22 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
+// the bf16 form (flash_attention_bwd_wgmma.cu)
+int flash_attention_bwd_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* scratch, void* dq, void* dk,
+    void* dv, int B, int Sq, int Skv, int H, int KV, int D, int causal,
+    int window, int prefix_len, float scale, cudaStream_t s);
+
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv share it);
 // q, o, dout, dq (B, Sq, H, D) and k, v, dk, dv (B, Skv, KV, D), contiguous;
-// lse (B, H, Sq) f32 from the forward; delta an f32 (B, H, Sq) scratch;
-// 1 <= D <= 256, H a multiple of KV; the mask arguments as the forward's.
-// Launches the three passes on the stream; returns the CUDA error of the
-// first launch refused (0 when all were accepted).
+// lse (B, H, Sq) f32 from the forward; delta an f32 scratch: (B, H, Sq) for
+// f32, 2 B H Sq_pad floats for bf16 (Sq_pad = Sq rounded up to 128);
+// 1 <= D <= 256 (bf16: a multiple of 8, 16-byte aligned tensors; scale the
+// caller's 1/sqrt(D)), H a multiple of KV; the mask arguments as the
+// forward's.  Launches the three passes on the stream; returns the CUDA
+// error of the first launch refused (0 when all were accepted), or for
+// bf16 -(a CUresult) when a tensor map cannot be made.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -442,8 +446,9 @@ extern "C" int flash_attention_bwd_launch(
                                Sq, Skv, H, KV, D, causal, window, prefix_len,
                                scale, s);
     if (dtype == 1)
-        return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, B, Sq, Skv, H, KV, D, causal,
-                                       window, prefix_len, scale, s);
+        return flash_attention_bwd_wgmma_launch(q, k, v, o, dout, lse, delta,
+                                                dq, dk, dv, B, Sq, Skv, H, KV,
+                                                D, causal, window, prefix_len,
+                                                scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,11 +12,12 @@ through the kernel.
 Its gradient: when grad is enabled and q, k or v requires grad,
 ``flash_attention`` goes through ``FlashAttentionFn``, an autograd Function
 whose forward is the same launch with each row's log-sum-exp kept, and
-whose backward launches the hand-written backward kernel
-(``csrc/flash_attention_bwd.cu``, its own library) on CUDA tensors, adding
-one to ``bwd_launches()``, or runs its plain version
-(``ref.flash_attention_bwd_torch``) on CPU tensors.  Serving, with no
-gradient, launches exactly the forward.
+whose backward launches the hand-written backward kernel (a library of its
+own, whose C entry point in ``csrc/flash_attention_bwd.cu`` sends bf16 to
+the tensor-core form, ``csrc/flash_attention_bwd_wgmma.cu``, and f32 to
+its CUDA-core form) on CUDA tensors, adding one to ``bwd_launches()``, or
+runs its plain version (``ref.flash_attention_bwd_torch``) on CPU tensors.
+Serving, with no gradient, launches exactly the forward.
 """
 from __future__ import annotations
 
@@ -38,8 +39,11 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 #: the two forms' sources and the Hopper header the bf16 form includes
 SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu",
            _CSRC.parents[1] / "csrc" / "hopper.cuh")
-#: the backward kernel's source, a library of its own
-BWD_SOURCES = (_CSRC / "flash_attention_bwd.cu",)
+#: the backward kernel's sources, a library of its own: the C entry point
+#: and the f32 CUDA-core form, the bf16 tensor-core form and its header
+BWD_SOURCES = (_CSRC / "flash_attention_bwd.cu",
+               _CSRC / "flash_attention_bwd_wgmma.cu",
+               _CSRC.parents[1] / "csrc" / "hopper.cuh")
 #: the dtypes the kernel takes, by the code its C entry point reads
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the widest head the kernel's templates cover (D is padded to 32s in f32,
@@ -48,6 +52,8 @@ MAX_HEAD_DIM = 256
 #: the bf16 form's TMA reads rows of 16-byte multiples from 16-byte
 #: aligned tensors: a bf16 head is padded with zeros to a multiple of this
 BF16_HEAD_ALIGN = 8
+#: the bf16 backward's row vectors (lse, Drow) are padded to this many rows
+BWD_ROW_PAD = 128
 
 _launches = 0
 _bwd_launches = 0
@@ -239,8 +245,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     the output's gradient ``do`` and the forward's log-sum-exp ``lse``
     (B, H, Sq) f32.  On CUDA tensors this launches the backward kernel on
     the current stream (three passes, one count in ``bwd_launches``) or
-    raises; CPU tensors run ``flash_attention_bwd_torch``.  The gradients
-    are of the caller's own head width, scaled by 1/sqrt(D)."""
+    raises: bf16 on the tensor-core form, its head padded with zero
+    columns to a multiple of ``BF16_HEAD_ALIGN`` as the forward's, f32 on
+    the CUDA-core form.  CPU tensors run ``flash_attention_bwd_torch``.
+    The gradients are of the caller's own head width, scaled by
+    1/sqrt(D)."""
     global _bwd_launches
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -257,21 +266,41 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous f32 {(B, H, Sq)}")
+    Dk = D
+    if q.dtype == torch.bfloat16:
+        if D % BF16_HEAD_ALIGN:
+            # zero columns change no score, no Drow and no gradient column
+            Dk = D + (-D % BF16_HEAD_ALIGN)
+            q, k, v, o, do = (F.pad(t, (0, Dk - D)) for t in (q, k, v, o, do))
+        if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+            raise ValueError("the bf16 backward takes 16-byte aligned q, k, "
+                             "v, o, do")
+        # lse in log2 units and Drow, each (B, H, Sq padded to 128 rows)
+        scratch = torch.empty(2 * B * H * -(-Sq // BWD_ROW_PAD)
+                              * BWD_ROW_PAD, dtype=torch.float32,
+                              device=q.device)
+    else:
+        scratch = torch.empty_like(lse)               # Drow
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty_like(lse)
     fn = _bwd_launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 DTYPES[q.dtype], B, Sq, Skv, H, KV, D, int(bool(causal)),
+                 DTYPES[q.dtype], B, Sq, Skv, H, KV, Dk, int(bool(causal)),
                  int(window), int(prefix_len), 1.0 / math.sqrt(D), stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention backward: cuTensorMapEncodeTiled "
+                           f"failed (CUresult {-err}; 1 also when libcuda has "
+                           f"no such entry point)")
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")
     with _count_lock:
         _bwd_launches += 1
+    if Dk != D:
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -81,7 +81,7 @@ def mlp(x, p, act: str = "silu"):
     """Gated MLP over one layer's weights."""
     up = x @ p["w_up"]
     if act == "silu":
-        h = F.silu(x @ p["w_gate"]) * up
+        h = silu(x @ p["w_gate"]) * up
     else:
         h = gelu(up)                           # jax.nn.gelu's default
     return h @ p["w_down"]

@@ -105,11 +105,14 @@ def forward(params, cfg: ModelConfig, tokens=None, *, features=None,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def block(h, aux, lp, win):
-        h = h + attention_block(rms_norm(h, lp["norm1"]), lp["attn"], cfg,
-                                positions, causal=cfg.causal, window=win,
-                                prefix_len=prefix_len, block_kv=block_kv)
-        f, a = _ffn(rms_norm(h, lp["norm2"]), lp, cfg)
-        return h + f, aux + a
+        hm = h.float() + attention_block(
+            rms_norm(h, lp["norm1"]), lp["attn"], cfg, positions,
+            causal=cfg.causal, window=win, prefix_len=prefix_len,
+            block_kv=block_kv).float()
+        # the norm reads the residual sum unrounded, as the reference's
+        # compiled scan body does (XLA drops that bf16 rounding)
+        f, a = _ffn(rms_norm(hm, lp["norm2"]).to(h.dtype), lp, cfg)
+        return hm.to(h.dtype) + f, aux + a
 
     run = _remat(params)
     for lp, win in zip(params["layers"], layer_windows(cfg)):

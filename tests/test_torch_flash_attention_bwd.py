@@ -9,12 +9,16 @@ requires grad) against ``jax.vjp`` of ``blockwise_attention``, over causal,
 windowed, prefix-LM and full masks, GQA and MQA, ragged lengths, f32 and
 bf16 (tolerances 2e-3 and 5e-2, those of ``tests/test_kernels.py``); a
 ``gradcheck`` of the Function in f64; the routing (the Function only under
-grad).  On a card (``cuda`` marker, skipped without one): the backward
-kernel against its plain version (per element 2e-3 + 2e-3 |want| in f32,
-2e-3 + 1e-2 |want| in bf16, the bound ``chip_smoke.py`` holds), ``lm_loss``
-backward on a dense smoke model giving every attention weight the plain
-path's gradient, and the SSD and WKV wrappers refusing a gradient they
-cannot give.  The card tests import nothing of JAX:
+grad); and the bf16 tensor-core form's roundings (P and dS split into bf16
+hi + lo) emulated at one KV group of h2o-danube-1.8b's training shape,
+within the card's bound of the plain version, with each split shown to be
+needed and a planted fault (dS without Drow) shown to fail.  On a card
+(``cuda`` marker, skipped without one): the backward kernel against its
+plain version (per element 2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want|
+in bf16, the bound ``chip_smoke.py`` holds), two calls giving the same
+bits, ``lm_loss`` backward on a dense smoke model giving every attention
+weight the plain path's gradient, and the SSD and WKV wrappers refusing a
+gradient they cannot give.  The card tests import nothing of JAX:
 
     python -m pytest -q -m cuda tests/test_torch_flash_attention_bwd.py
 """
@@ -23,7 +27,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_torch,
+from repro_torch.kernels.flash_attention.ref import (_keep,
+                                                     flash_attention_bwd_torch,
                                                      flash_attention_torch)
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
@@ -160,6 +165,104 @@ def test_plain_lse_is_each_rows_log_sum_exp():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 tensor-core form's roundings, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+#: one batch row and one KV group of h2o-danube-1.8b's training attention:
+#: (B, Sq, Skv, H, KV, D), causal
+EMULATION_SHAPE = (1, 2048, 2048, 4, 1, 80)
+LOG2E = 1.4426950408889634
+
+
+def _excess(got, want, dtype):
+    """How far ``got`` lies outside ``KERNEL_TOL[dtype]`` around ``want``
+    (<= 0: within it everywhere)."""
+    atol, rtol = KERNEL_TOL[dtype]
+    want = want.float()
+    return float(((got.float() - want).abs()
+                  - (atol + rtol * want.abs())).max())
+
+
+def _rounded(x, split: bool):
+    """An f32 operand as the bf16 form feeds it to the tensor cores: bf16
+    hi + lo (16 bits kept) when split, else rounded once to bf16."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float() if split else hi
+
+
+def _emulate_bf16_form(q, k, v, o, do, lse, *, causal=True, window=0,
+                       prefix_len=0, split_p=True, split_ds=True,
+                       no_delta=False):
+    """The arithmetic of ``csrc/flash_attention_bwd_wgmma.cu`` in torch:
+    scores as f32 products of the bf16 inputs times scale * log2(e), P =
+    exp2(s - lse log2(e)) under the mask, Drow = rowsum(dO o O) and dS = P
+    (dP - Drow) in f32; P (into dV) and dS (into dK and dQ) rounded as the
+    kernel feeds them to the tensor cores (``_rounded``); f32 sums, the
+    scale applied to dQ and dK once at the end, each gradient rounded once
+    to bf16.  ``no_delta`` plants a fault: dS taken without Drow."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / np.sqrt(D)
+    keep = _keep(torch.arange(Sq)[:, None], torch.arange(Skv)[None, :], Skv,
+                 causal, window, prefix_len)
+    dq = torch.zeros(q.shape)
+    dk, dv = torch.zeros(k.shape), torch.zeros(k.shape)
+    for b in range(B):
+        for h in range(H):
+            kvh = h // G
+            qh, gh = q[b, :, h].float(), do[b, :, h].float()
+            kh, vh = k[b, :, kvh].float(), v[b, :, kvh].float()
+            drow = 0.0 if no_delta else (gh * o[b, :, h].float()).sum(
+                -1, keepdim=True)
+            s = (qh @ kh.T) * (scale * LOG2E)
+            p = torch.exp2(s - lse[b, h, :, None] * LOG2E).masked_fill(
+                ~keep, 0.0)
+            ds = _rounded(p * (gh @ vh.T - drow), split_ds)
+            dv[b, :, kvh] += _rounded(p, split_p).T @ gh
+            dk[b, :, kvh] += ds.T @ qh
+            dq[b, :, h] = (ds @ kh) * scale
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk * scale, dv))
+
+
+@pytest.fixture(scope="module")
+def emulation_case():
+    """danube's group in bf16: inputs, the plain forward's o and lse, and
+    the plain backward (what the kernel is held to on the card)."""
+    B, Sq, Skv, H, KV, D = EMULATION_SHAPE
+    q, k, v, do = _inputs(EMULATION_SHAPE, torch.bfloat16, seed=0)
+    o, lse = flash_attention_torch(q, k, v, causal=True, return_lse=True)
+    want = flash_attention_bwd_torch(q, k, v, o, do, lse, causal=True)
+    return (q, k, v, o, do, lse), want
+
+
+def test_bf16_form_emulated_within_kernel_bound(emulation_case):
+    """With P and dS split into bf16 hi + lo, the form's roundings keep
+    dQ, dK and dV within the card's bound (2e-3 + 1e-2 |want|) of the
+    plain version; dS taken without Drow, a planted fault, fails it."""
+    args, want = emulation_case
+    got = _emulate_bf16_form(*args)
+    for name, g, w in zip("qkv", got, want):
+        assert _excess(g, w, torch.bfloat16) <= 0, f"d{name}"
+    fault = _emulate_bf16_form(*args, no_delta=True)
+    assert max(_excess(g, w, torch.bfloat16)
+               for g, w in zip(fault, want)) > 0
+
+
+@pytest.mark.parametrize("operand", ["p", "ds"])
+def test_bf16_form_needs_each_split(emulation_case, operand):
+    """Why the kernel splits both operands: P rounded once to bf16 puts dV,
+    and dS rounded once puts dK and dQ, outside the card's bound."""
+    args, want = emulation_case
+    got = _emulate_bf16_form(*args, split_p=operand != "p",
+                             split_ds=operand != "ds")
+    rounded = {"p": "v", "ds": "qk"}[operand]
+    for name, g, w in zip("qkv", got, want):
+        over = _excess(g, w, torch.bfloat16)
+        assert (over > 0) == (name in rounded), (f"d{name}", over)
+
+
+# ---------------------------------------------------------------------------
 # on a card
 # ---------------------------------------------------------------------------
 
@@ -179,14 +282,9 @@ CARD_CASES = [
     (2, 200, 4, 4, 64, False, 0, 0),        # full
     (1, 130, 4, 2, 20, True, 0, 33),        # bf16 pads D to 24 forward
     (1, 70, 4, 1, 128, True, 0, 70),        # a prefix of every key
+    (1, 190, 4, 2, 112, True, 0, 0),        # bf16: one 112-column piece
+    (1, 160, 4, 1, 96, False, 0, 0),        # bf16: one 96-column piece
 ]
-
-
-def _excess(got, want, dtype):
-    atol, rtol = KERNEL_TOL[dtype]
-    want = want.float()
-    return float(((got.float() - want).abs()
-                  - (atol + rtol * want.abs())).max())
 
 
 @pytest.mark.cuda
@@ -228,6 +326,20 @@ def test_function_on_card_matches_plain_autograd(card, dtype):
     for name, g, w in zip("qkv", got, want):
         assert g.shape == w.shape
         assert _excess(g, w, dtype) <= 0, f"d{name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_backward_is_bit_identical_across_calls(card, dtype):
+    """GQA is reduced in registers, with no atomics: two calls on the same
+    inputs (danube-1.8b's heads) give the same bits."""
+    q, k, v, do = _inputs((2, 512, 512, 32, 8, 80), dtype, device=card)
+    o, lse = ops._forward(q, k, v, True, 0, 0, True)
+    first = ops.flash_attention_bwd(q, k, v, o, do, lse)
+    second = ops.flash_attention_bwd(q, k, v, o, do, lse)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a.view(bits), b.view(bits)), f"d{name}"
 
 
 @pytest.mark.cuda
