@@ -22,9 +22,10 @@ of the shared attention block), rwkv6-1.6b (24 RWKV-6 blocks) and
 deepseek-moe-16b (28 layers of 64 routed experts top-6 and 2 shared) at
 their published widths, random weights from the seed (zamba2's per-head
 decay from Mamba-2's initial ranges), through ``prefill_fn`` and
-``greedy_generate``.  The training path: h2o-danube-1.8b whole (24
-layers) through ``launch.train.main``, attention's gradient in the
-hand-written backward kernel.
+``greedy_generate``.  The training paths: h2o-danube-1.8b whole (24
+layers), zamba2-2.7b whole (54 Mamba-2 layers) and rwkv6-1.6b whole (24
+blocks) through ``launch.train.main``, the gradients of attention, the
+SSD and the WKV in their hand-written backward kernels.
 Each phase prints one JSON line:
 
   device           the card's name and power limit (``nvidia-smi``), versions
@@ -131,6 +132,21 @@ Each phase prints one JSON line:
                    B = 1, and at B = 2 with every log_w at the model's clamp
                    (the diagonal sub-blocks per (t, i, d)), each checked
                    against the plain version
+  ssd_bwd          per case (zamba2's training shape in bf16 and f32, a
+                   ragged length, a small shape; B and C views of one
+                   tensor; the CUDA-core form for both dtypes): the SSD
+                   backward kernel's six gradients vs its plain version
+                   (``ssd_bwd_torch``) under the same per-element bounds,
+                   three planted faults that must exceed them (the carried
+                   dS dropped at the middle chunk; the decay term of
+                   dcum_L left out; dD left out), kernel and plain ms, the
+                   bound; two calls at zamba2's shape bit-identical
+  wkv_bwd          the same for the WKV backward kernel's five gradients
+                   (rwkv6-1.6b's training shape in bf16 and f32, a ragged
+                   length with r, k, v views of one tensor, every log_w at
+                   the clamp, a small head; the faults: the carried dS, the
+                   decay term (not at the clamp, where nothing carries),
+                   du)
   lm_prefill       per model, in bf16, B = 2 x 2048 tokens: wall ms, kernel
                    launches, peak memory; the kernel path vs the plain
                    path in f32 (checked; deepseek-moe-16b on its first 8
@@ -155,12 +171,23 @@ Each phase prints one JSON line:
                    flash launches a step, finite losses, the restored
                    state bit for bit the saved one; step ms, tokens/s,
                    peak memory), one ``--compress`` step and one
-                   factored-AdamW step (checked)
+                   factored-AdamW step (checked); then zamba2-2.7b and
+                   rwkv6-1.6b: the f32 check on their first 6 (one group
+                   of Mamba-2 layers and the shared block; Mamba-2's
+                   initial decays) and 4 layers at B = 2 x 2048 (every
+                   gradient leaf within 2e-3 relative L2 of the plain path;
+                   A_log, D, dt_bias, conv_w, w_in, and u, ww, w_bias, mix
+                   nonzero in every layer), then ``launch.train.main`` on
+                   the whole model in bf16, B = 4 x 2048, 4 steps (finite
+                   losses; launches a step: 108 SSD forward, 54 backward, 9
+                   flash each way; 48 WKV forward, 24 backward; step ms,
+                   tokens/s, peak memory) and a step's device time by group
   kernels          the summary line of every kernel (cgra_exec's launches
                    by path: run_batch, stream, service, breaker, sharded,
                    cluster and cluster_heal from the workers' engines, dse,
-                   traced; flash_attention's: serving, training; the
-                   backward kernel's from training)
+                   traced; flash_attention's, mamba2_ssd's and rwkv6's:
+                   serving, training; the three backward kernels' from
+                   training)
 
 The raw ``nvidia-smi`` line comes next, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -497,7 +524,10 @@ def build_all():
 
     kernels = (("cgra_exec", cgra_ops), ("flash_attention", fa_ops),
                ("flash_attention_bwd", SimpleNamespace(build=fa_ops.build_bwd)),
-               ("mamba2_ssd", ssd_ops), ("rwkv6", wkv_ops))
+               ("mamba2_ssd", ssd_ops),
+               ("mamba2_ssd_bwd", SimpleNamespace(build=ssd_ops.build_bwd)),
+               ("rwkv6", wkv_ops),
+               ("rwkv6_bwd", SimpleNamespace(build=wkv_ops.build_bwd)))
     sass, ptxas_by_lib = {}, {}
     with ThreadPoolExecutor(len(kernels)) as pool:
         futs = {name: pool.submit(timed, mod) for name, mod in kernels}
@@ -549,10 +579,14 @@ def ptxas_line(line: str) -> str:
                      r"|bwd_\w+_kernel_wgmma)ILi(\d+)EE", head.group(1))
     bwd = re.search(r"bwd_\w+_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
                     head.group(1))
+    typed = re.search(r"(?:ssd_bwd|wkv6_bwd|sum_parts)_kernelI"
+                      r"(f|13__nv_bfloat16)E", head.group(1))
     form = (f"<{args.group(1)},{args.group(2)}>" if args
             else f"<{cols.group(1)}>" if cols
             else f"<{'f32' if bwd.group(1) == 'f' else 'bf16'},"
-                 f"{bwd.group(2)}>" if bwd else "")
+                 f"{bwd.group(2)}>" if bwd
+            else f"<{'f32' if typed.group(1) == 'f' else 'bf16'}>" if typed
+            else "")
     return f"entry {kernel_name(head.group(1))}{form}"
 
 
@@ -1565,12 +1599,14 @@ def excess(got, want, dt: str) -> float:
 
 
 def check_case(phase: str, name: str, dt: str, run_kernel, run_plain,
-               faults) -> dict:
+               faults, timed=None) -> dict:
     """One case of a float kernel's phase: the kernel's output against its
     plain version within ``KERNEL_TOL[dt]`` per element, each planted fault
-    held to the same bound (it must fail it), and both versions timed.
-    ``faults`` maps a fault's name to a function that returns its output
-    and the first step (axis 1) it covers.  Returns the row's numbers."""
+    held to the same bound (it must fail it), and both versions timed
+    (``run_kernel`` and ``run_plain``, or the pair ``timed`` where the
+    checked outputs are assembled from the calls).  ``faults`` maps a
+    fault's name to a function that returns its output and the first step
+    (axis 1) it covers.  Returns the row's numbers."""
     import torch
     got, want = run_kernel(), run_plain()
     torch.cuda.synchronize()
@@ -1591,8 +1627,9 @@ def check_case(phase: str, name: str, dt: str, run_kernel, run_plain,
         row[f"{fault_name}_max_abs_err"] = fault_err
         row[f"{fault_name}_excess"] = fault_over
     del got, want
-    row["ms"], row["host_ms"] = time_ms(run_kernel, reps=10, warmup=2)
-    row["plain_ms"], _ = time_ms(run_plain, reps=2)
+    time_kernel, time_plain = timed or (run_kernel, run_plain)
+    row["ms"], row["host_ms"] = time_ms(time_kernel, reps=10, warmup=2)
+    row["plain_ms"], _ = time_ms(time_plain, reps=2)
     return row
 
 
@@ -2208,6 +2245,241 @@ def wkv_phases(dev, sass) -> dict:
                  "r/k/v/u, f32 log_w", "forms": forms}
 
 
+def grad_cat(grads):
+    """A tuple of gradients as one (1, n) f32 tensor, so that one bound
+    covers all of them."""
+    import torch
+    return torch.cat([g.float().reshape(1, -1) for g in grads], dim=1)
+
+
+def zeroed(grads, i: int):
+    """``grads`` with its ``i``-th gradient zero: what a backward that
+    leaves that gradient out returns."""
+    import torch
+    return tuple(torch.zeros_like(g) if j == i else g
+                 for j, g in enumerate(grads))
+
+
+def scan_bwd_summary(name: str, rows: dict, lead: str, source: str,
+                     replaces: str, note: str, shape: str, kernels,
+                     ptxas) -> dict:
+    """The summary entry of a scan's backward kernel (its ``lead`` case's
+    numbers, both dtypes' rows named in ``forms``), with the ptxas lines of
+    its kernels (``kernels``), less the main path's launches."""
+    entries = ptxas_entries(ptxas)
+    forms = {dt: {"case": case, "ms": rows[case]["ms"],
+                  "bound_ms": rows[case]["bound_ms"],
+                  "bound_by": rows[case]["bound_by"], "library_ms": None}
+             for dt, case in (("bfloat16", lead), ("float32", lead + "-f32"))}
+    row = rows[lead]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "replaces_note": note, "launches": None,
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "shape": shape, "forms": forms,
+        "ptxas": {e: v for e, v in entries.items()
+                  if e.split("<")[0] in kernels},
+        "repeat_bit_identical": row["repeat_bit_identical"]}
+
+
+#: (name, B, S, H, P, N, dtype, decay) of the SSD backward phase: zamba2's
+#: training shape (B = 4, S = 2048, 80 heads of 64, state 64) in bf16 and
+#: f32 on Mamba-2's slow decays, a ragged length on mixed decays, and a
+#: small shape with P != N; B and C are views of one tensor, as the model
+#: hands them over
+SSD_BWD_CASES = [
+    ("zamba2-train", 4, 2048, 80, 64, 64, "bfloat16", "slow"),
+    ("zamba2-train-f32", 4, 2048, 80, 64, 64, "float32", "slow"),
+    ("ragged", 2, 2000, 80, 64, 64, "bfloat16", "slow"),
+    ("small-p32-n16", 3, 200, 8, 32, 16, "float32", "mixed"),
+]
+SSD_BWD_SOURCE = ("src/repro_torch/kernels/mamba2_ssd/csrc/"
+                  "mamba2_ssd_bwd.cu")
+
+
+def ssd_bwd_bound(B, S, H, P, N, dtype):
+    """Least time for one SSD backward call: per chunk of l steps, per head
+    the state recomputed (x kdec^T B), dy S_c, (dy exp(cum))^T C, B dS^T
+    and x dS (2 l P N each), dy x^T and W^T dy over the l (l + 1) / 2
+    causal pairs (2 P each), and per batch row (B and C shared by the
+    heads, dcb summed over them first) C B^T, dcb B and dcb^T C over the
+    causal pairs (2 N each), over the peak rate of ``dtype``; against x,
+    dy, dt, B, C, A_log, D read once and their gradients written once over
+    HBM's rate.  Also the flops the kernel issues: ten full L^3 products
+    per (batch, head, chunk)."""
+    from repro_torch.kernels.mamba2_ssd.ops import CHUNK
+    item = 2 if dtype == "bfloat16" else 4
+    lens = [min(CHUNK, S - s0) for s0 in range(0, S, CHUNK)]
+    pairs = [ln * (ln + 1) // 2 for ln in lens]
+    flops = sum(B * H * (5 * 2 * ln * P * N + 2 * 2 * P * pr)
+                + B * 3 * 2 * N * pr for ln, pr in zip(lens, pairs))
+    kernel_flops = len(lens) * B * H * 10 * 2 * CHUNK ** 3
+    nbytes = (3 * item * B * S * H * P + 2 * 4 * B * S * H
+              + 4 * item * B * S * N + 4 * 4 * H)
+    return (*roofline(flops, nbytes, dtype), flops, kernel_flops, nbytes)
+
+
+def ssd_bwd_phases(dev, ptxas) -> dict:
+    """The SSD backward kernel against its plain version
+    (``ssd_bwd_torch``) on every case, all six gradients under one
+    per-element bound, with three planted faults held to the same bound
+    (each must fail it): the carried dS dropped at the middle chunk, the
+    decay term of dcum_L left out (both ``omit``), and dD left out; the
+    kernel's time, the plain version's and the bound; two calls at
+    zamba2's training shape giving the same bits.  Returns the kernel's
+    summary entry, less the main path's launches."""
+    import torch
+
+    from repro_torch.kernels.mamba2_ssd import ops
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_bwd_torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+    for name, B, S, H, P, N, dt_name, decay in SSD_BWD_CASES:
+        dtype = getattr(torch, dt_name)
+        x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, N, dtype, decay)
+        bc = torch.cat([Bm, Cm], dim=-1)
+        args = (x, dt, A_log, bc[..., :N], bc[..., N:], D)
+        dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+
+        def plain(*omit):
+            return ssd_bwd_torch(*args, dy, chunk=ops.CHUNK, omit=omit)
+        res = check_case(
+            "ssd_bwd", name, dt_name, lambda: grad_cat(ops.ssd_bwd(*args, dy)),
+            lambda: grad_cat(plain()),
+            {"dropped_carry": lambda: (grad_cat(plain("carry")), 0),
+             "no_decay_term": lambda: (grad_cat(plain("decay_term")), 0),
+             "no_dD": lambda: (grad_cat(zeroed(plain(), 5)), 0)},
+            timed=(lambda: ops.ssd_bwd(*args, dy), plain))
+        b_ms, b_by, flops, kflops, nbytes = ssd_bwd_bound(B, S, H, P, N,
+                                                          dt_name)
+        rows[name] = row = {
+            "case": name, "B": B, "S": S, "H": H, "P": P, "N": N,
+            "dtype": dt_name, "decay": decay, **res, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "kernel_flops": kflops, "bytes": nbytes,
+            "tflop_s": kflops / res["ms"] / 1e9,
+            "gb_s": nbytes / res["ms"] / 1e6}
+        if name == "zamba2-train":
+            calls = [ops.ssd_bwd(*args, dy) for _ in range(2)]
+            row["repeat_bit_identical"] = all(
+                bits_equal(a, b) for a, b in zip(*calls))
+            check(row["repeat_bit_identical"],
+                  f"ssd_bwd {name}: two calls differ in their bits")
+            del calls
+        emit("ssd_bwd", **row)
+        del x, dt, A_log, Bm, Cm, D, bc, args, dy
+    torch.cuda.empty_cache()
+    return scan_bwd_summary(
+        "mamba2_ssd_bwd", rows, "zamba2-train", SSD_BWD_SOURCE,
+        "src/repro/models/mamba2.py:43",
+        "XLA's autodiff of ssd_chunked; the JAX package has no backward "
+        "pallas_call",
+        "zamba2-2.7b training SSD: B=4, S=2048, H=80, P=64, N=64, bf16 "
+        "x/B/C/dy, f32 dt", ("ssd_bwd_kernel", "sum_parts_kernel"), ptxas)
+
+
+#: (name, B, S, H, K, dtype, decay) of the WKV backward phase: rwkv6-1.6b's
+#: training shape (B = 4, S = 2048, 32 heads of 64) in bf16 and f32 on the
+#: model's slow decays, a ragged length on mixed decays with r, k, v as
+#: views of one tensor, every log_w at the model's clamp, and a small head
+WKV_BWD_CASES = [
+    ("rwkv6-train", 4, 2048, 32, 64, "bfloat16", "slow"),
+    ("rwkv6-train-f32", 4, 2048, 32, 64, "float32", "slow"),
+    ("ragged", 2, 2000, 32, 64, "bfloat16", "slow"),
+    ("clamp", 2, 512, 32, 64, "bfloat16", "clamp"),
+    ("small-k16", 3, 200, 8, 16, "float32", "mixed"),
+]
+WKV_BWD_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu"
+
+
+def wkv_bwd_bound(B, S, H, K, dtype):
+    """Least time for one WKV backward call: per (batch, head) and chunk of
+    l steps, the state recomputed, do S_c^T, (r exp(cum_ex))^T do, v dS^T
+    and kdec dS (2 l K^2 each), A, dA, A^T do and the two sums over E over
+    the l (l - 1) / 2 causal pairs (2 K each), and the bonus's five terms
+    (2 l K each), over the peak rate of ``dtype``; against r, k, v, do, u
+    read once in ``dtype`` and log_w in f32, and their gradients written
+    once, over HBM's rate."""
+    from repro_torch.kernels.rwkv6.ops import CHUNK
+    item = 2 if dtype == "bfloat16" else 4
+    lens = [min(CHUNK, S - s0) for s0 in range(0, S, CHUNK)]
+    flops = sum(B * H * (5 * 2 * ln * K * K + 5 * K * ln * (ln - 1)
+                         + 5 * 2 * ln * K) for ln in lens)
+    nbytes = (7 * item * B * S * H * K + 2 * 4 * B * S * H * K
+              + 2 * item * H * K)
+    return (*roofline(flops, nbytes, dtype), flops, nbytes)
+
+
+def wkv_bwd_phases(dev, ptxas) -> dict:
+    """The WKV backward kernel against its plain version
+    (``wkv6_bwd_torch``) on every case, all five gradients under one
+    per-element bound, with three planted faults held to the same bound
+    (each must fail it): the carried dS dropped at the middle chunk and the
+    decay term of dcum_L left out (both ``omit``; not at the clamp, where
+    the state dies within a step), and du left out; the kernel's time, the plain version's and the bound; two calls at
+    rwkv6-1.6b's training shape giving the same bits.  Returns the kernel's
+    summary entry, less the main path's launches."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_torch
+    from repro_torch.models.rwkv6 import LOG_W_MIN
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = {}
+    for name, B, S, H, K, dt_name, decay in WKV_BWD_CASES:
+        dtype = getattr(torch, dt_name)
+        r, k, v, log_w, u = wkv_inputs(gen, B, S, H, K, dtype,
+                                       "slow" if decay == "clamp" else decay)
+        if decay == "clamp":
+            log_w.fill_(LOG_W_MIN)
+        if name == "ragged":
+            rkv = torch.cat([r, k, v], dim=-1)
+            r, k, v = rkv[..., :K], rkv[..., K:2 * K], rkv[..., 2 * K:]
+        args = (r, k, v, log_w, u)
+        do = torch.randn(r.shape, generator=gen, device=dev).to(dtype)
+
+        def plain(*omit):
+            return wkv6_bwd_torch(*args, do, chunk=ops.CHUNK, omit=omit)
+        faults = {"no_du": lambda: (grad_cat(zeroed(plain(), 4)), 0)}
+        if decay != "clamp":
+            # at the clamp the state dies within a step: nothing to carry
+            faults.update(
+                dropped_carry=lambda: (grad_cat(plain("carry")), 0),
+                no_decay_term=lambda: (grad_cat(plain("decay_term")), 0))
+        res = check_case(
+            "wkv_bwd", name, dt_name, lambda: grad_cat(ops.wkv6_bwd(*args, do)),
+            lambda: grad_cat(plain()), faults,
+            timed=(lambda: ops.wkv6_bwd(*args, do), plain))
+        b_ms, b_by, flops, nbytes = wkv_bwd_bound(B, S, H, K, dt_name)
+        rows[name] = row = {
+            "case": name, "B": B, "S": S, "H": H, "K": K, "dtype": dt_name,
+            "decay": decay, **res, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by, "flops": flops, "bytes": nbytes,
+            "tflop_s": flops / res["ms"] / 1e9,
+            "gb_s": nbytes / res["ms"] / 1e6}
+        if name == "rwkv6-train":
+            calls = [ops.wkv6_bwd(*args, do) for _ in range(2)]
+            row["repeat_bit_identical"] = all(
+                bits_equal(a, b) for a, b in zip(*calls))
+            check(row["repeat_bit_identical"],
+                  f"wkv_bwd {name}: two calls differ in their bits")
+            del calls
+        emit("wkv_bwd", **row)
+        del r, k, v, log_w, u, args, do
+    torch.cuda.empty_cache()
+    return scan_bwd_summary(
+        "wkv6_bwd", rows, "rwkv6-train", WKV_BWD_SOURCE,
+        "src/repro/models/rwkv6.py:44",
+        "XLA's autodiff of wkv6_chunked; the JAX package has no backward "
+        "pallas_call",
+        "rwkv6-1.6b training WKV: B=4, S=2048, H=32, K=64, bf16 r/k/v/u/do, "
+        "f32 log_w", ("wkv6_bwd_kernel", "sum_parts_kernel"), ptxas)
+
+
 def to_f32(tree):
     """An f32 copy of a parameter tree."""
     if isinstance(tree, dict):
@@ -2774,8 +3046,197 @@ def lm_train_phases(dev, seed: int) -> dict:
                       f"{factored_loss}, params finite {finite}")
     del params, fstate, batch
     torch.cuda.empty_cache()
-    return {"flash_attention": run1[0] + run2[0],
-            "flash_attention_bwd": run1[1] + run2[1]}
+    launches = {"flash_attention": run1[0] + run2[0],
+                "flash_attention_bwd": run1[1] + run2[1]}
+    for arch in RECURRENT_TRAIN:
+        for k, n in recurrent_train_phases(dev, seed, arch).items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+#: the recurrent models trained on the card: arch -> (the f32 check's
+#: layers, the per-layer gradient leaves that must be nonzero).  zamba2's 6
+#: layers are one group of Mamba-2 layers and its shared attention block
+RECURRENT_TRAIN = {
+    "zamba2-2.7b": (6, ("A_log", "D", "dt_bias", "conv_w", "w_in")),
+    "rwkv6-1.6b": (4, ("u", "ww", "w_bias", "mix")),
+}
+RECURRENT_TRAIN_STEPS = 4
+
+
+def train_groups(arch: str) -> dict:
+    """A training step's kernel groups for ``arch``: cuBLAS's products,
+    the scan's forward (with the remat replay) and backward kernels, and
+    zamba2's flash forward and backward."""
+    if arch.startswith("zamba2"):
+        scan = {"ssd_fwd_ms": lambda n: "ssd_kernel" in n,
+                "ssd_bwd_ms": lambda n: "ssd_bwd_kernel" in n
+                or "sum_parts_kernel" in n}
+        flash = {g: TRAIN_GROUPS[g] for g in ("flash_fwd_ms", "flash_bwd_ms")}
+    else:
+        scan = {"wkv_fwd_ms": lambda n: "wkv6_kernel" in n,
+                "wkv_bwd_ms": lambda n: "wkv6_bwd_kernel" in n
+                or "sum_parts_kernel" in n}
+        flash = {}
+    return {"gemm_ms": LM_GROUPS["gemm_ms"], **scan, **flash}
+
+
+def recurrent_train_phases(dev, seed: int, arch: str) -> dict:
+    """Training a recurrent model on the card.  The f32 check: its first
+    layers (``RECURRENT_TRAIN``) at full width, B = 2 x 2048, zamba2's with
+    Mamba-2's initial decays (``mamba2_decay_init``; the reference's zeros
+    kill every head's state within a chunk, so a backward without the
+    carried dS would still match), rwkv6's with the model's own slow
+    decays: the loss and every gradient leaf of the kernel path against the
+    plain path (``plain_kernels``: autograd of the plain forwards) within
+    2e-3 relative L2, the listed leaves nonzero in every layer, and the
+    launches (the scan's forward twice a layer, its remat replay
+    included, and its backward once; zamba2's flash once each way a group).
+    The main path: ``launch.train.main`` on the whole model in bf16,
+    B = 4 x 2048, RECURRENT_TRAIN_STEPS steps, finite losses and the same
+    launches a step; step ms, tokens/s, peak memory, then the device time
+    of a step by group.  Returns the main path's launches by kernel."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.interop import lm_leaves
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.common import init_params
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.train.train_step import make_loss_and_grad
+
+    cfg = get_config(arch)
+    zamba = cfg.family == "zamba2"
+    scan_ops, scan = (ssd_ops, "mamba2_ssd") if zamba else (wkv_ops, "rwkv6")
+
+    def counts():
+        out = {scan: scan_ops.launches(), scan + "_bwd": scan_ops.bwd_launches()}
+        if zamba:
+            out.update(flash_attention=fa_ops.launches(),
+                       flash_attention_bwd=fa_ops.bwd_launches())
+        return out
+
+    def reset():
+        scan_ops.reset_launches()
+        fa_ops.reset_launches()
+
+    def expected(n_layers: int) -> dict:
+        out = {scan: 2 * n_layers, scan + "_bwd": n_layers}
+        if zamba:
+            groups = n_layers // cfg.shared_attn_every
+            out.update(flash_attention=groups, flash_attention_bwd=groups)
+        return out
+
+    # ---- the f32 check: kernel path against plain path --------------------
+    n_f32, nonzero = RECURRENT_TRAIN[arch]
+    cfg32 = cfg.scaled(n_layers=n_f32, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(gen, cfg32, dev)
+    if zamba:
+        with torch.no_grad():
+            mamba2_decay_init(params["layers"], gen)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in host_batch(
+        cfg32, DataConfig(seed=seed, global_batch=TRAIN_F32_B,
+                          seq_len=TRAIN_S), 0).items()}
+    reset()
+    loss_k, _, grads_k = make_loss_and_grad(cfg32, 1)(params, batch)
+    torch.cuda.synchronize()
+    f32_launches = counts()
+    check(f32_launches == expected(n_f32),
+          f"{arch} f32 check: launches {f32_launches}, expected "
+          f"{expected(n_f32)}")
+    with plain_kernels():
+        loss_p, _, grads_p = make_loss_and_grad(cfg32, 1)(params, batch)
+
+    def named(grads):
+        return {"/".join(p) + ("" if i is None else f"[{i}]"): t
+                for p, i, t in lm_leaves(grads)}
+    gk, gp = named(grads_k), named(grads_p)
+    grad_err = {k: rel_l2(gk[k], gp[k]) for k in gk}
+    worst = max(grad_err, key=grad_err.get)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    # the scan layers' own leaves (the reference's stacked "mamba" / "rwkv")
+    scan_leaves = [("/".join(p) + f"[{i}]", p[-1], t)
+                   for p, i, t in lm_leaves(grads_k)
+                   if p[0] in ("mamba", "rwkv") and p[-1] in nonzero]
+    zero = [k for k, _, t in scan_leaves if not float(t.abs().max()) > 0]
+    checked = sorted({n for _, n, _ in scan_leaves})
+    emit("lm_train", step="f32_check", arch=cfg.name, n_layers=n_f32,
+         B=TRAIN_F32_B, S=TRAIN_S, loss_kernel=float(loss_k),
+         loss_plain=float(loss_p), loss_rel=loss_err,
+         grad_rel_l2_max=grad_err[worst], grad_rel_l2_worst_leaf=worst,
+         grad_rel_l2={k: grad_err[k] for k in gk
+                      if any(k.split("[")[0].endswith("/" + n)
+                             for n in nonzero)},
+         tol=2e-3, nonzero_checked=checked, zero_grads=zero,
+         decay="mamba2_decay_init" if zamba else "the model's own",
+         launches=f32_launches)
+    check(loss_err <= 2e-3 and grad_err[worst] <= 2e-3,
+          f"{arch} f32 train check: loss rel {loss_err}, gradient {worst} "
+          f"rel L2 {grad_err[worst]}")
+    check(checked == sorted(nonzero) and not zero,
+          f"{arch}: leaves {checked} checked, zero gradients at {zero}")
+    del params, batch, grads_k, grads_p, gk, gp
+    torch.cuda.empty_cache()
+
+    # ---- the main path: launch.train on the whole model, bf16 -------------
+    L, steps = cfg.n_layers, RECURRENT_TRAIN_STEPS
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_main(["--arch", arch, "--batch", str(TRAIN_B), "--seq",
+                      str(TRAIN_S), "--steps", str(steps), "--log-every",
+                      "1", "--seed", str(seed)])
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    run = counts()
+    want = {k: n * steps for k, n in expected(L).items()}
+    check(run == want, f"{arch} train: launches {run} in {steps} steps, "
+                       f"expected {want}")
+    losses = out["losses"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{arch} losses {losses}")
+    step_s = sorted(out["step_s"][1:])
+    step_ms = step_s[len(step_s) // 2] * 1e3
+    emit("lm_train", step="main_path", arch=cfg.name, n_layers=L,
+         params=out["params"], dtype="bfloat16", B=TRAIN_B, S=TRAIN_S,
+         steps=steps, losses=losses, first_loss=out["first_loss"],
+         last_loss=out["last_loss"], step_ms=step_ms,
+         step_ms_all=[x * 1e3 for x in out["step_s"]],
+         tokens_per_s=TRAIN_B * TRAIN_S / step_ms * 1e3,
+         peak_memory_bytes=peak, run_s=run_s,
+         launches_per_step={k: n // steps for k, n in run.items()})
+
+    # ---- where a step's time goes -----------------------------------------
+    state = out.pop("state")
+    params, opt_state = state["params"], state["opt"]["opt"]
+    opt = OptConfig(total_steps=steps)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in host_batch(
+        cfg, DataConfig(seed=seed, global_batch=TRAIN_B, seq_len=TRAIN_S),
+        steps).items()}
+    total_grad = make_loss_and_grad(cfg, 1)
+    grads = None
+
+    def grad_part():
+        nonlocal grads
+        grads = total_grad(params, batch)[2]
+    groups = train_groups(arch)
+    grad_prof = device_profile(grad_part, groups)
+    opt_prof = device_profile(lambda: adamw_update(params, grads, opt_state,
+                                                   opt))
+    busy = grad_prof["device_busy_ms"]
+    emit("lm_breakdown", arch=cfg.name, step="train step", B=TRAIN_B,
+         S=TRAIN_S, grad=grad_prof, optimizer=opt_prof,
+         groups_ms={**{g: grad_prof[g] for g in groups},
+                    "optimizer_ms": opt_prof["device_busy_ms"],
+                    "rest_ms": busy - sum(grad_prof[g] for g in groups)})
+    del params, opt_state, state, grads, batch, out
+    torch.cuda.empty_cache()
+    return run
 
 
 def main(argv=None) -> int:
@@ -2828,25 +3289,29 @@ def main(argv=None) -> int:
     flash_bwd = flash_bwd_phases(dev, sass["flash_attention_bwd"],
                                  ptxas["flash_attention_bwd"])
     ssd = ssd_phases(dev, sass["mamba2_ssd"])
+    ssd_bwd = ssd_bwd_phases(dev, ptxas["mamba2_ssd_bwd"])
     wkv = wkv_phases(dev, sass["rwkv6"])
+    wkv_bwd = wkv_bwd_phases(dev, ptxas["rwkv6_bwd"])
     launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0}
     for arch in LM_ARCHS:
         for k, n in lm_phases(dev, args.seed, arch).items():
             launches[k] += n
     train = lm_train_phases(dev, args.seed)
-    flash["launches_by_path"] = {"serving": launches["flash_attention"],
-                                 "training": train["flash_attention"]}
-    flash["launches"] = sum(flash["launches_by_path"].values())
+    for entry, kernel in ((flash, "flash_attention"), (ssd, "mamba2_ssd"),
+                          (wkv, "rwkv6")):
+        entry["launches_by_path"] = {"serving": launches[kernel],
+                                     "training": train[kernel]}
+        entry["launches"] = sum(entry["launches_by_path"].values())
     flash_bwd["launches"] = train["flash_attention_bwd"]
-    ssd["launches"] = launches["mamba2_ssd"]
-    wkv["launches"] = launches["rwkv6"]
-    for entry in (flash, flash_bwd, ssd, wkv):
+    ssd_bwd["launches"] = train["mamba2_ssd_bwd"]
+    wkv_bwd["launches"] = train["rwkv6_bwd"]
+    entries = [cgra, flash, flash_bwd, ssd, ssd_bwd, wkv, wkv_bwd]
+    for entry in entries[1:]:
         check(entry["launches"] > 0, f"the main path never launched "
                                      f"{entry['name']}")
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port imported jax or the JAX package")
-    print(json.dumps({"kernels": [cgra, flash, flash_bwd, ssd, wkv]}),
-          flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

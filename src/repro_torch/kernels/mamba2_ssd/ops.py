@@ -8,6 +8,14 @@ C entry point picks the form by dtype).  Only CPU tensors go to the plain
 PyTorch version (``ref.ssd_torch``).  Every launch adds one to the module's
 launch count (``launches()``), so a run can show that it went through the
 kernel.
+
+Its gradient: when grad is enabled and an input requires grad, ``ssd``
+goes through ``SSDFn``, an autograd Function whose forward is the same
+launch and whose backward launches the hand-written backward kernel (a
+library of its own, ``csrc/mamba2_ssd_bwd.cu``, on the CUDA cores for
+both dtypes) on CUDA tensors, adding one to ``bwd_launches()``, or runs
+its plain version (``ref.ssd_bwd_torch``) on CPU tensors.  Serving, with
+no gradient, launches exactly the forward.
 """
 from __future__ import annotations
 
@@ -20,12 +28,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.mamba2_ssd.ref import ssd_torch
+from repro_torch.kernels.mamba2_ssd.ref import ssd_bwd_torch, ssd_torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: the two forms' sources and the Hopper header the bf16 form includes
 SOURCES = (_CSRC / "mamba2_ssd.cu", _CSRC / "mamba2_ssd_wgmma.cu",
            _CSRC.parents[1] / "csrc" / "hopper.cuh")
+#: the backward kernel's source, a library of its own
+BWD_SOURCES = (_CSRC / "mamba2_ssd_bwd.cu",)
 #: the dtypes of x, B, C and y the kernel takes, by the code its C entry
 #: point reads (dt, A_log and D are handed over in f32)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,24 +48,39 @@ MAX_WIDTH = 64
 TMA_ALIGN = 16
 
 _launches = 0
+_bwd_launches = 0
 _count_lock = threading.Lock()
 
 
 def launches() -> int:
-    """Kernel launches since the last ``reset_launches`` (CUDA only)."""
+    """Forward kernel launches since the last ``reset_launches`` (CUDA
+    only)."""
     with _count_lock:
         return _launches
 
 
-def reset_launches() -> None:
-    global _launches
+def bwd_launches() -> int:
+    """Backward kernel launches since the last ``reset_launches`` (CUDA
+    only)."""
     with _count_lock:
-        _launches = 0
+        return _bwd_launches
+
+
+def reset_launches() -> None:
+    """Set both counts to 0."""
+    global _launches, _bwd_launches
+    with _count_lock:
+        _launches = _bwd_launches = 0
 
 
 def build() -> Path:
     """Build the kernel library (no-op when it exists); returns its path."""
     return _build.build("mamba2_ssd", SOURCES, {})
+
+
+def build_bwd() -> Path:
+    """Build the backward kernel's library (no-op when it exists)."""
+    return _build.build("mamba2_ssd_bwd", BWD_SOURCES, {})
 
 
 @functools.cache
@@ -67,6 +92,23 @@ def _launcher():
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _bwd_launcher():
+    """The backward library's C entry point and its scratch size, built
+    and loaded once per process."""
+    lib = _build.load("mamba2_ssd_bwd", BWD_SOURCES, {})
+    fn = lib.mamba2_ssd_bwd_launch
+    # x, dt, A_log, B, C, D, dy, dx, ddt, dA_log, dB, dC, dD, scratch;
+    # dtype, B, S, H, P, N; strides; stream
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.mamba2_ssd_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    return fn, size
 
 
 def _check(x, dt, A_log, B, C, D):
@@ -120,19 +162,19 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     of 8 elements; x, B or C that is not so (a state of 12, an odd offset)
     is copied first, contiguous and zero-padded (``_tma_readable``), and
     still runs that form.  f32 runs the CUDA-core form.  CPU tensors run
-    the plain version.  A CUDA input that requires grad (with grad enabled)
-    raises ``NotImplementedError``: there is no backward kernel yet, and a
-    detached output would train nothing silently."""
-    global _launches
-    Bsz, S, H, P, N = _check(x, dt, A_log, B, C, D)
-    if x.device.type == "cpu":
-        return ssd_torch(x, dt, A_log, B, C, D, chunk=CHUNK)
+    the plain version.  When grad is enabled and an input requires grad,
+    the call goes through ``SSDFn``, whose backward is the backward kernel
+    (CUDA) or its plain version (CPU)."""
+    _check(x, dt, A_log, B, C, D)
     if torch.is_grad_enabled() and any(t.requires_grad for t in
                                        (x, dt, A_log, B, C, D)):
-        raise NotImplementedError(
-            "mamba2_ssd has no backward kernel yet (ROADMAP Queue A, A12): "
-            "zamba2 trains on the CPU only; its output on the card would "
-            "carry no gradient")
+        return SSDFn.apply(x, dt, A_log, B, C, D)
+    return _forward(x, dt, A_log, B, C, D)
+
+
+def _check_cuda(x, B, C) -> None:
+    """What the CUDA kernels take beyond ``_check``."""
+    P, N = x.shape[-1], B.shape[-1]
     if x.device.type != "cuda":
         raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
     if x.dtype not in DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
@@ -143,6 +185,16 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         raise ValueError(f"P = {P} and N = {N} must be at most {MAX_WIDTH}")
     if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
         raise ValueError("x, B and C need a contiguous last axis")
+
+
+def _forward(x, dt, A_log, B, C, D):
+    """The forward on checked inputs."""
+    global _launches
+    Bsz, S, H, P = x.shape
+    N = B.shape[-1]
+    if x.device.type == "cpu":
+        return ssd_torch(x, dt, A_log, B, C, D, chunk=CHUNK)
+    _check_cuda(x, B, C)
     if x.dtype == torch.bfloat16:
         x, B, C = _tma_readable(x), _tma_readable(B), _tma_readable(C)
     dt, A_log, D = dt.float(), A_log.float().contiguous(), \
@@ -167,3 +219,67 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     with _count_lock:
         _launches += 1
     return y if PY == P else y[..., :P].contiguous()
+
+
+def ssd_bwd(x, dt, A_log, B, C, D, dy):
+    """dx, ddt, dA_log, dB, dC, dD of ``ssd`` from its inputs and the
+    output's gradient ``dy``, each in its input's dtype and shape (a
+    gradient of a strided view comes back contiguous).  On CUDA tensors
+    this launches the backward kernel on the current stream (one count in
+    ``bwd_launches``), without synchronising, or raises, under what the
+    forward takes; the kernel reads x, B, C and dy in their dtype (f32 or
+    bf16) and accumulates in f32.  It allocates an f32 scratch for the
+    chunks' entry states and the per-head partial sums of dB, dC, dA_log
+    and dD (168 MB of states and 168 MB each of dB and dC partials at
+    zamba2-2.7b's training shape).  CPU tensors run ``ssd_bwd_torch``."""
+    global _bwd_launches
+    Bsz, S, H, P, N = _check(x, dt, A_log, B, C, D)
+    if x.device.type == "cpu":
+        return ssd_bwd_torch(x, dt, A_log, B, C, D, dy, chunk=CHUNK)
+    _check_cuda(x, B, C)
+    if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} must match "
+                         f"x {tuple(x.shape)} on {x.device}")
+    dy = dy.to(x.dtype).contiguous()
+    dt32, A32, D32 = dt.float(), A_log.float().contiguous(), \
+        D.float().contiguous()
+    dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((Bsz, S, H), dtype=torch.float32, device=x.device)
+    dB = torch.empty((Bsz, S, N), dtype=x.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    dA, dD = (torch.empty((H,), dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    fn, size = _bwd_launcher()
+    scratch = torch.empty((size(Bsz, S, H, P, N),), dtype=torch.float32,
+                          device=x.device)
+    strides = (ctypes.c_longlong * 10)(
+        *x.stride()[:3], *dt32.stride(), *B.stride()[:2], *C.stride()[:2])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), B.data_ptr(),
+                 C.data_ptr(), D32.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                 ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                 dD.data_ptr(), scratch.data_ptr(), DTYPES[x.dtype], Bsz, S,
+                 H, P, N, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba2_ssd backward launch failed: CUDA error "
+                           f"{err}")
+    with _count_lock:
+        _bwd_launches += 1
+    return (dx, ddt.to(dt.dtype), dA.to(A_log.dtype), dB, dC,
+            dD.to(D.dtype))
+
+
+class SSDFn(torch.autograd.Function):
+    """``ssd`` with its gradient: the forward saves its inputs as the
+    caller gave them; the backward hands them with the output's gradient
+    to ``ssd_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, B, C, D):
+        ctx.save_for_backward(x, dt, A_log, B, C, D)
+        return _forward(x, dt, A_log, B, C, D)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_bwd(*ctx.saved_tensors, dy)

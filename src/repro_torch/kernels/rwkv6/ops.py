@@ -8,6 +8,14 @@ point picks the form by dtype).  Only CPU tensors go to the plain PyTorch
 version (``ref.wkv6_torch``).  Every call that launches adds one to the
 module's launch count (``launches()``), so a run can show that it went
 through the kernel.
+
+Its gradient: when grad is enabled and an input requires grad, ``wkv6``
+goes through ``WKV6Fn``, an autograd Function whose forward is the same
+launch and whose backward launches the hand-written backward kernel (a
+library of its own, ``csrc/wkv6_bwd.cu``, on the CUDA cores for both
+dtypes) on CUDA tensors, adding one to ``bwd_launches()``, or runs its
+plain version (``ref.wkv6_bwd_torch``) on CPU tensors.  Serving, with no
+gradient, launches exactly the forward.
 """
 from __future__ import annotations
 
@@ -20,12 +28,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.rwkv6.ref import wkv6_torch
+from repro_torch.kernels.rwkv6.ref import wkv6_bwd_torch, wkv6_torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: the two forms' sources and the Hopper header the bf16 form includes
 SOURCES = (_CSRC / "wkv6.cu", _CSRC / "wkv6_wgmma.cu",
            _CSRC.parents[1] / "csrc" / "hopper.cuh")
+#: the backward kernel's source, a library of its own (chunks of
+#: ``CHUNK``, both dtypes on the CUDA cores)
+BWD_SOURCES = (_CSRC / "wkv6_bwd.cu",)
 #: the dtypes of r, k, v and o the kernel takes, by the code its C entry
 #: point reads (log_w and u are handed over in f32)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,24 +56,39 @@ GEOMETRIES = {"n64": 64, "n32": 32}
 TMA_ALIGN = 16
 
 _launches = 0
+_bwd_launches = 0
 _count_lock = threading.Lock()
 
 
 def launches() -> int:
-    """Kernel launches since the last ``reset_launches`` (CUDA only)."""
+    """Forward kernel launches since the last ``reset_launches`` (CUDA
+    only)."""
     with _count_lock:
         return _launches
 
 
-def reset_launches() -> None:
-    global _launches
+def bwd_launches() -> int:
+    """Backward kernel launches since the last ``reset_launches`` (CUDA
+    only)."""
     with _count_lock:
-        _launches = 0
+        return _bwd_launches
+
+
+def reset_launches() -> None:
+    """Set both counts to 0."""
+    global _launches, _bwd_launches
+    with _count_lock:
+        _launches = _bwd_launches = 0
 
 
 def build() -> Path:
     """Build the kernel library (no-op when it exists); returns its path."""
     return _build.build("rwkv6", SOURCES, {})
+
+
+def build_bwd() -> Path:
+    """Build the backward kernel's library (no-op when it exists)."""
+    return _build.build("rwkv6_bwd", BWD_SOURCES, {})
 
 
 def kept_geometry() -> str:
@@ -82,6 +108,23 @@ def _launcher():
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _bwd_launcher():
+    """The backward library's C entry point and its scratch size, built
+    and loaded once per process."""
+    lib = _build.load("rwkv6_bwd", BWD_SOURCES, {})
+    fn = lib.wkv6_bwd_launch
+    # r, k, v, log_w, u, do, dr, dk, dv, dlog_w, du, scratch; dtype, B, S,
+    # H, K; strides; stream
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.wkv6_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_longlong
+    return fn, size
 
 
 def _check(r, k, v, log_w, u):
@@ -135,19 +178,18 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     offset, a head of 12) is copied first, contiguous and zero-padded
     (``_tma_readable``), and still runs that form.  f32 runs the CUDA-core
     form over chunks of 32.  CPU tensors run the plain version over chunks
-    of ``CHUNK``.  A CUDA input that requires grad (with grad enabled)
-    raises ``NotImplementedError``: there is no backward kernel yet, and a
-    detached output would train nothing silently."""
-    global _launches
-    B, S, H, K = _check(r, k, v, log_w, u)
-    if r.device.type == "cpu":
-        return wkv6_torch(r, k, v, log_w, u, chunk=CHUNK)
+    of ``CHUNK``.  When grad is enabled and an input requires grad, the
+    call goes through ``WKV6Fn``, whose backward is the backward kernel
+    (CUDA) or its plain version (CPU)."""
+    _check(r, k, v, log_w, u)
     if torch.is_grad_enabled() and any(t.requires_grad for t in
                                        (r, k, v, log_w, u)):
-        raise NotImplementedError(
-            "rwkv6 has no backward kernel yet (ROADMAP Queue A, A13): "
-            "rwkv6 trains on the CPU only; its output on the card would "
-            "carry no gradient")
+        return WKV6Fn.apply(r, k, v, log_w, u, geometry)
+    return _forward(r, k, v, log_w, u, geometry)
+
+
+def _check_cuda(r, k, v, log_w) -> None:
+    """What the CUDA kernels take beyond ``_check``."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
     if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
@@ -157,10 +199,19 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if log_w.dtype not in (torch.float32, r.dtype):
         raise ValueError(f"log_w must be float32 or r's dtype, got "
                          f"{log_w.dtype}")
-    if K > MAX_HEAD:
-        raise ValueError(f"K = {K} must be at most {MAX_HEAD}")
+    if r.shape[-1] > MAX_HEAD:
+        raise ValueError(f"K = {r.shape[-1]} must be at most {MAX_HEAD}")
     if any(t.stride(-1) != 1 for t in (r, k, v, log_w)):
         raise ValueError("r, k, v and log_w need a contiguous last axis")
+
+
+def _forward(r, k, v, log_w, u, geometry):
+    """The forward on checked inputs."""
+    global _launches
+    B, S, H, K = r.shape
+    if r.device.type == "cpu":
+        return wkv6_torch(r, k, v, log_w, u, chunk=CHUNK)
+    _check_cuda(r, k, v, log_w)
     bf16 = r.dtype == torch.bfloat16
     if geometry is not None and (not bf16 or geometry not in GEOMETRIES):
         raise ValueError(f"geometry {geometry!r}: the bf16 form takes one of "
@@ -189,3 +240,64 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _count_lock:
         _launches += 1
     return o if KO == K else o[..., :K].contiguous()
+
+
+def wkv6_bwd(r, k, v, log_w, u, do):
+    """dr, dk, dv, dlog_w, du of ``wkv6`` from its inputs and the output's
+    gradient ``do``, each in its input's dtype and shape (a gradient of a
+    strided view comes back contiguous).  On CUDA tensors this launches the
+    backward kernel on the current stream (one count in ``bwd_launches``),
+    without synchronising, or raises, under what the forward takes; the
+    kernel reads r, k, v and do in their dtype (f32 or bf16) and log_w in
+    f32, and accumulates in f32 over chunks of ``CHUNK``.  It allocates an
+    f32 scratch for the chunks' entry states and the per-batch-row partial
+    sums of du (134 MB at rwkv6-1.6b's training shape).  CPU tensors run
+    ``wkv6_bwd_torch``."""
+    global _bwd_launches
+    B, S, H, K = _check(r, k, v, log_w, u)
+    if r.device.type == "cpu":
+        return wkv6_bwd_torch(r, k, v, log_w, u, do, chunk=CHUNK)
+    _check_cuda(r, k, v, log_w)
+    if tuple(do.shape) != tuple(r.shape) or do.device != r.device:
+        raise ValueError(f"do {tuple(do.shape)} on {do.device} must match "
+                         f"r {tuple(r.shape)} on {r.device}")
+    do = do.to(r.dtype).contiguous()
+    lw32, u32 = log_w.float(), u.float().contiguous()
+    dr, dk, dv = (torch.empty((B, S, H, K), dtype=r.dtype, device=r.device)
+                  for _ in range(3))
+    dlw = torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
+    du = torch.empty((H, K), dtype=torch.float32, device=r.device)
+    fn, size = _bwd_launcher()
+    scratch = torch.empty((size(B, S, H, K),), dtype=torch.float32,
+                          device=r.device)
+    strides = (ctypes.c_longlong * 12)(
+        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *lw32.stride()[:3])
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw32.data_ptr(),
+                 u32.data_ptr(), do.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
+                 scratch.data_ptr(), DTYPES[r.dtype], B, S, H, K, strides,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6 wkv6 backward launch failed: CUDA error "
+                           f"{err}")
+    with _count_lock:
+        _bwd_launches += 1
+    return dr, dk, dv, dlw.to(log_w.dtype), du.to(u.dtype)
+
+
+class WKV6Fn(torch.autograd.Function):
+    """``wkv6`` with its gradient: the forward saves its inputs as the
+    caller gave them; the backward hands them with the output's gradient
+    to ``wkv6_bwd``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, geometry):
+        ctx.save_for_backward(r, k, v, log_w, u)
+        return _forward(r, k, v, log_w, u, geometry)
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*wkv6_bwd(*ctx.saved_tensors, do), None)

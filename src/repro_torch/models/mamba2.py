@@ -13,8 +13,12 @@ with a_t = exp(-dt_t * exp(A_log_h)).
 ``mamba2_layer``'s prefill scan goes through ``kernels/mamba2_ssd.ops.ssd``,
 which launches the hand-written SSD kernel on a CUDA tensor and runs
 ``ssd_chunked`` on a CPU tensor; the choice follows the tensor's device,
-never a failure.  Decode's one-step update is plain PyTorch, as it is plain
-jnp in the reference.
+never a failure.  In training (an input requires grad) the scan goes
+through ``ops.SSDFn``, whose backward launches the hand-written backward
+kernel on the card and runs ``ref.ssd_bwd_torch`` on the CPU: zamba2
+trains on both.  The ``softplus`` of dt stays outside the kernels, in
+autograd.  Decode's one-step update is plain PyTorch, as it is plain jnp
+in the reference.
 """
 from __future__ import annotations
 

@@ -13,8 +13,12 @@ with w_t = exp(-exp(ww x_t + b)) in (0, 1) data-dependent.
 ``rwkv6_layer``'s prefill WKV goes through ``kernels/rwkv6.ops.wkv6``,
 which launches the hand-written WKV kernel on a CUDA tensor and runs
 ``wkv6_chunked`` on a CPU tensor; the choice follows the tensor's device,
-never a failure.  Decode's one-step update is plain PyTorch, as it is plain
-jnp in the reference.
+never a failure.  In training (an input requires grad) the WKV goes
+through ``ops.WKV6Fn``, whose backward launches the hand-written backward
+kernel on the card and runs ``ref.wkv6_bwd_torch`` on the CPU: rwkv6
+trains on both.  The clamp of log_w at ``LOG_W_MIN`` stays outside the
+kernels, in autograd.  Decode's one-step update is plain PyTorch, as it is
+plain jnp in the reference.
 """
 from __future__ import annotations
 

@@ -17,8 +17,7 @@ needed and a planted fault (dS without Drow) shown to fail.  On a card
 plain version (per element 2e-3 + 2e-3 |want| in f32, 2e-3 + 1e-2 |want|
 in bf16, the bound ``chip_smoke.py`` holds), two calls giving the same
 bits, ``lm_loss`` backward on a dense smoke model giving every attention
-weight the plain path's gradient, and the SSD and WKV wrappers refusing a
-gradient they cannot give.  The card tests import nothing of JAX:
+weight the plain path's gradient.  The card tests import nothing of JAX:
 
     python -m pytest -q -m cuda tests/test_torch_flash_attention_bwd.py
 """
@@ -380,31 +379,3 @@ def test_lm_loss_backward_on_card_gives_attention_its_gradient(card,
             assert float(gk[name].abs().max()) > 0, (i, name)
             rel = float((gk[name] - gp[name]).norm() / gp[name].norm())
             assert rel <= 2e-3, (i, name, rel)
-
-
-@pytest.mark.cuda
-def test_ssd_refuses_a_gradient_on_card(card):
-    from repro_torch.kernels.mamba2_ssd.ops import ssd
-    Bsz, S, H, P, N = 1, 64, 2, 16, 16
-    x = torch.randn(Bsz, S, H, P, device=card, requires_grad=True)
-    dt = torch.rand(Bsz, S, H, device=card)
-    args = (x, dt, torch.zeros(H, device=card),
-            torch.randn(Bsz, S, N, device=card),
-            torch.randn(Bsz, S, N, device=card), torch.ones(H, device=card))
-    with pytest.raises(NotImplementedError, match="A12"):
-        ssd(*args)
-    with torch.no_grad():
-        assert ssd(*args).shape == x.shape
-
-
-@pytest.mark.cuda
-def test_wkv_refuses_a_gradient_on_card(card):
-    from repro_torch.kernels.rwkv6.ops import wkv6
-    B, S, H, K = 1, 64, 2, 16
-    r, k, v = (torch.randn(B, S, H, K, device=card) for _ in range(3))
-    log_w = -torch.rand(B, S, H, K, device=card)
-    u = torch.randn(H, K, device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        wkv6(r, k, v, log_w, u)
-    with torch.no_grad():
-        assert wkv6(r, k, v, log_w, u).shape == r.shape
