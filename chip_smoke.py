@@ -134,13 +134,16 @@ Each phase prints one JSON line:
                    against the plain version
   ssd_bwd          per case (zamba2's training shape in bf16 and f32, a
                    ragged length, a small shape; B and C views of one
-                   tensor; the CUDA-core form for both dtypes): the SSD
-                   backward kernel's six gradients vs its plain version
-                   (``ssd_bwd_torch``) under the same per-element bounds,
-                   three planted faults that must exceed them (the carried
-                   dS dropped at the middle chunk; the decay term of
-                   dcum_L left out; dD left out), kernel and plain ms, the
-                   bound; two calls at zamba2's shape bit-identical
+                   tensor; bf16 on the chunk-parallel tensor-core form,
+                   f32 on the CUDA-core form): the SSD backward kernel's
+                   six gradients vs its plain version (``ssd_bwd_torch``)
+                   under the same per-element bounds, four planted faults
+                   that must exceed them (the carried dS dropped at the
+                   middle chunk; the decay term of dcum_L left out; dD
+                   left out; one head's dcb left out of dB's and dC's sum
+                   over the heads), kernel and plain ms, the bound; two
+                   calls at zamba2's shape bit-identical; HGMMA in the
+                   bf16 form's product kernels' SASS
   wkv_bwd          the same for the WKV backward kernel's five gradients
                    (rwkv6-1.6b's training shape in bf16 and f32, a ragged
                    length with r, k, v views of one tensor, every log_w at
@@ -2297,6 +2300,26 @@ SSD_BWD_CASES = [
 ]
 SSD_BWD_SOURCE = ("src/repro_torch/kernels/mamba2_ssd/csrc/"
                   "mamba2_ssd_bwd.cu")
+#: the backward's two forms: (kernels, the ones that do products, source);
+#: the C entry point is in SSD_BWD_SOURCE
+SSD_BWD_FORMS = {
+    "bfloat16": (["ssd_bwd_state_kernel_wgmma", "ssd_bwd_chunk_kernel_wgmma",
+                  "ssd_bwd_sum_bc_kernel", "ssd_bwd_sum_h_kernel"],
+                 ["ssd_bwd_state_kernel_wgmma", "ssd_bwd_chunk_kernel_wgmma"],
+                 "src/repro_torch/kernels/mamba2_ssd/csrc/"
+                 "mamba2_ssd_bwd_wgmma.cu"),
+    "float32": (["ssd_bwd_kernel", "sum_parts_kernel"], ["ssd_bwd_kernel"],
+                SSD_BWD_SOURCE),
+}
+#: the products of 64^3 the bf16 form issues: per (batch, head) and chunk
+#: boundary the two walks' state updates; per (batch, chunk) per head phase
+#: 2's five and trace(S^T G)'s three, and per group of SSD_BWD_GROUP heads
+#: B C^T and dcb's two; each f32 operand counted once a bf16 part
+#: (mamba2_ssd_bwd_wgmma.cu: the walks' as hi + mid + lo, the rest hi + lo)
+SSD_BWD_PRODUCTS = {"per_boundary": 2 * 3,
+                    "per_head": 1 + 2 + 2 + 2 + 2 + 3,
+                    "per_group": 1 + 2 + 2}
+SSD_BWD_GROUP = 8
 
 
 def ssd_bwd_bound(B, S, H, P, N, dtype):
@@ -2307,29 +2330,42 @@ def ssd_bwd_bound(B, S, H, P, N, dtype):
     heads, dcb summed over them first) C B^T, dcb B and dcb^T C over the
     causal pairs (2 N each), over the peak rate of ``dtype``; against x,
     dy, dt, B, C, A_log, D read once and their gradients written once over
-    HBM's rate.  Also the flops the kernel issues: ten full L^3 products
-    per (batch, head, chunk)."""
+    HBM's rate.  Also the flops the kernel issues: in f32 ten full L^3
+    products per (batch, head, chunk), in bf16 ``SSD_BWD_PRODUCTS`` per
+    (batch, chunk)."""
     from repro_torch.kernels.mamba2_ssd.ops import CHUNK
     item = 2 if dtype == "bfloat16" else 4
     lens = [min(CHUNK, S - s0) for s0 in range(0, S, CHUNK)]
     pairs = [ln * (ln + 1) // 2 for ln in lens]
     flops = sum(B * H * (5 * 2 * ln * P * N + 2 * 2 * P * pr)
                 + B * 3 * 2 * N * pr for ln, pr in zip(lens, pairs))
-    kernel_flops = len(lens) * B * H * 10 * 2 * CHUNK ** 3
+    if dtype == "bfloat16":
+        groups = -(-H // SSD_BWD_GROUP)
+        products = B * (len(lens) * (H * SSD_BWD_PRODUCTS["per_head"]
+                                     + groups * SSD_BWD_PRODUCTS["per_group"])
+                        + (len(lens) - 1) * H
+                        * SSD_BWD_PRODUCTS["per_boundary"])
+    else:
+        products = len(lens) * B * H * 10
+    kernel_flops = products * 2 * CHUNK ** 3
     nbytes = (3 * item * B * S * H * P + 2 * 4 * B * S * H
               + 4 * item * B * S * N + 4 * 4 * H)
     return (*roofline(flops, nbytes, dtype), flops, kernel_flops, nbytes)
 
 
-def ssd_bwd_phases(dev, ptxas) -> dict:
+def ssd_bwd_phases(dev, sass, ptxas) -> dict:
     """The SSD backward kernel against its plain version
-    (``ssd_bwd_torch``) on every case, all six gradients under one
-    per-element bound, with three planted faults held to the same bound
-    (each must fail it): the carried dS dropped at the middle chunk, the
-    decay term of dcum_L left out (both ``omit``), and dD left out; the
-    kernel's time, the plain version's and the bound; two calls at
-    zamba2's training shape giving the same bits.  Returns the kernel's
-    summary entry, less the main path's launches."""
+    (``ssd_bwd_torch``) on every case (bf16 on the tensor-core form, f32
+    on the CUDA-core form), all six gradients under one per-element bound,
+    with four planted faults held to the same bound (each must fail it):
+    the carried dS dropped at the middle chunk, the decay term of dcum_L
+    left out, one head's dcb left out of dB's and dC's sum over the heads
+    (all three ``omit``), and dD left out; the kernel's time, the plain
+    version's and the bound; two calls at zamba2's training shape giving
+    the same bits.  Checks, where the toolkit shows them, that each bf16
+    kernel that does products runs on the tensor cores (HGMMA in its
+    SASS) and that ptxas spills nothing in the bf16 form.  Returns the
+    kernel's summary entry, less the main path's launches."""
     import torch
 
     from repro_torch.kernels.mamba2_ssd import ops
@@ -2351,6 +2387,7 @@ def ssd_bwd_phases(dev, ptxas) -> dict:
             lambda: grad_cat(plain()),
             {"dropped_carry": lambda: (grad_cat(plain("carry")), 0),
              "no_decay_term": lambda: (grad_cat(plain("decay_term")), 0),
+             "no_head_dcb": lambda: (grad_cat(plain("head_dcb")), 0),
              "no_dD": lambda: (grad_cat(zeroed(plain(), 5)), 0)},
             timed=(lambda: ops.ssd_bwd(*args, dy), plain))
         b_ms, b_by, flops, kflops, nbytes = ssd_bwd_bound(B, S, H, P, N,
@@ -2372,13 +2409,30 @@ def ssd_bwd_phases(dev, ptxas) -> dict:
         emit("ssd_bwd", **row)
         del x, dt, A_log, Bm, Cm, D, bc, args, dy
     torch.cuda.empty_cache()
-    return scan_bwd_summary(
-        "mamba2_ssd_bwd", rows, "zamba2-train", SSD_BWD_SOURCE,
+    if isinstance(sass, dict):
+        for n in SSD_BWD_FORMS["bfloat16"][1]:
+            check(bool(sass.get(n)) and sass[n]["HGMMA"] > 0,
+                  f"{n} has no HGMMA in its SASS: {sass.get(n)}")
+    entry = scan_bwd_summary(
+        "mamba2_ssd_bwd", rows, "zamba2-train", SSD_BWD_FORMS["bfloat16"][2],
         "src/repro/models/mamba2.py:43",
         "XLA's autodiff of ssd_chunked; the JAX package has no backward "
         "pallas_call",
         "zamba2-2.7b training SSD: B=4, S=2048, H=80, P=64, N=64, bf16 "
-        "x/B/C/dy, f32 dt", ("ssd_bwd_kernel", "sum_parts_kernel"), ptxas)
+        "x/B/C/dy, f32 dt",
+        [n for form in SSD_BWD_FORMS.values() for n in form[0]], ptxas)
+    for dt, form in entry["forms"].items():
+        kernels, _, source = SSD_BWD_FORMS[dt]
+        form.update(kernels=kernels, source=source,
+                    sass=({n: sass.get(n) for n in kernels}
+                          if isinstance(sass, dict) else sass),
+                    ptxas={e: v for e, v in entry["ptxas"].items()
+                           if e.split("<")[0] in kernels})
+    spilled = {e: v for e, v in entry["forms"]["bfloat16"]["ptxas"].items()
+               if v["spill_bytes"]}
+    check(bool(entry["forms"]["bfloat16"]["ptxas"]) and not spilled,
+          f"the bf16 SSD backward form spills: {spilled or 'no ptxas lines'}")
+    return entry
 
 
 #: (name, B, S, H, K, dtype, decay) of the WKV backward phase: rwkv6-1.6b's
@@ -3070,7 +3124,7 @@ def train_groups(arch: str) -> dict:
     zamba2's flash forward and backward."""
     if arch.startswith("zamba2"):
         scan = {"ssd_fwd_ms": lambda n: "ssd_kernel" in n,
-                "ssd_bwd_ms": lambda n: "ssd_bwd_kernel" in n
+                "ssd_bwd_ms": lambda n: "ssd_bwd_" in n
                 or "sum_parts_kernel" in n}
         flash = {g: TRAIN_GROUPS[g] for g in ("flash_fwd_ms", "flash_bwd_ms")}
     else:
@@ -3289,7 +3343,8 @@ def main(argv=None) -> int:
     flash_bwd = flash_bwd_phases(dev, sass["flash_attention_bwd"],
                                  ptxas["flash_attention_bwd"])
     ssd = ssd_phases(dev, sass["mamba2_ssd"])
-    ssd_bwd = ssd_bwd_phases(dev, ptxas["mamba2_ssd_bwd"])
+    ssd_bwd = ssd_bwd_phases(dev, sass["mamba2_ssd_bwd"],
+                             ptxas["mamba2_ssd_bwd"])
     wkv = wkv_phases(dev, sass["rwkv6"])
     wkv_bwd = wkv_bwd_phases(dev, ptxas["rwkv6_bwd"])
     launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0}

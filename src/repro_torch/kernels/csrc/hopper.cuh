@@ -1,5 +1,6 @@
 // hopper.cuh: the Hopper pieces the port's tensor-core kernels share
-// (flash_attention_wgmma.cu, mamba2_ssd_wgmma.cu, wkv6_wgmma.cu): mbarriers,
+// (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu,
+// mamba2_ssd_wgmma.cu, mamba2_ssd_bwd_wgmma.cu, wkv6_wgmma.cu): mbarriers,
 // named barriers, TMA loads and tensor maps, shared-memory descriptors,
 // fences and wgmma in bf16 with f32 accumulators.  sm_90a only.  A kernel
 // library that includes this header lists it among its SOURCES, so that an

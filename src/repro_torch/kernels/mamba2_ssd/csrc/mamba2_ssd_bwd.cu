@@ -2,7 +2,10 @@
 // to all six inputs.  CUDA C++ for sm_90a, built with nvcc into a shared
 // library of its own with a plain C entry point
 // (repro_torch/kernels/build.py) and bound with ctypes
-// (repro_torch/kernels/mamba2_ssd/ops.py, ssd_bwd and SSDFn).
+// (repro_torch/kernels/mamba2_ssd/ops.py, ssd_bwd and SSDFn).  This file
+// holds the C entry point, which sends every bf16 call to the tensor-core
+// form (mamba2_ssd_bwd_wgmma.cu) and every f32 call to the CUDA-core form
+// below, with no fallback.
 //
 // Replaces no pallas_call: the JAX package's gradient of the SSD is XLA's
 // autodiff of src/repro/models/mamba2.py::ssd_chunked, and that is what this
@@ -43,11 +46,11 @@
 // gradients in bf16, 0.078 ms at 3.35 TB/s.  This kernel issues ten full
 // 64^3 products per (batch, head, chunk), 53.7 GFLOP.
 //
-// What the design does about it: this first form is simple, right and
-// deterministic, on the CUDA cores for both dtypes (bf16 is read and written
-// as bf16, every sum is f32); the tensor cores are later work.  One block of
-// 256 threads owns one (batch, head), as the forward does, and makes two
-// sweeps over its chunks:
+// What the design does about it: this form is simple, right and
+// deterministic, on the CUDA cores (it took bf16 too until the tensor-core
+// form replaced it there: 5.408 ms at zamba2's bf16 shape on an H100 SXM
+// at 700 W, 9.9 TFLOP/s, 0 HGMMA).  One block of 256 threads owns one (batch, head), as the forward
+// does, and makes two sweeps over its chunks:
 //   1. forward: recompute the state entering each chunk, S_c (f32, P x N),
 //      and write it to a scratch in device memory (168 MB at the training
 //      shape), one 64^3 product a chunk;
@@ -65,6 +68,16 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+// the bf16 form (mamba2_ssd_bwd_wgmma.cu)
+long long mamba2_ssd_bwd_wgmma_scratch_floats(int B, int S, int H);
+int mamba2_ssd_bwd_wgmma_launch(const void* x, const void* dt,
+                                const void* A_log, const void* Bm,
+                                const void* Cm, const void* D, const void* dy,
+                                void* dx, void* ddt, void* dA_log, void* dB,
+                                void* dC, void* dD, void* scratch, int B,
+                                int S, int H, int P, int N,
+                                const long long* st, cudaStream_t stream);
 
 namespace {
 
@@ -84,13 +97,7 @@ constexpr size_t kSmemBytes =
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block can use");
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-}
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-}
 
 // cum = inclusive cumsum of la = -dt A over the chunk: warp 0, lane l holds
 // steps 2l and 2l + 1 (the forward's scan)
@@ -623,19 +630,23 @@ int launch(const void* x, const void* dt, const void* A_log, const void* Bm,
 
 }  // namespace
 
-// The f32 scratch (in floats) the backward needs for these sizes.
-extern "C" long long mamba2_ssd_bwd_scratch_floats(int B, int S, int H, int P,
-                                                   int N) {
-    return scratch_floats(B, S, H, P, N);
+// The f32 scratch (in floats) the backward needs for these sizes, by dtype
+// as mamba2_ssd_bwd_launch takes it.
+extern "C" long long mamba2_ssd_bwd_scratch_floats(int dtype, int B, int S,
+                                                   int H, int P, int N) {
+    return dtype == 1 ? mamba2_ssd_bwd_wgmma_scratch_floats(B, S, H)
+                      : scratch_floats(B, S, H, P, N);
 }
 
-// dtype 0: x, B, C, dy, dx, dB, dC in f32; 1: in bf16.  dt, A_log and D are
-// f32 (A_log and D contiguous); ddt (B, S, H), dA_log and dD (H,) come out
-// in f32.  strides (in elements): x's batch, step and head; dt's batch, step
-// and head; B's batch and step; C's batch and step (the last axis of each is
-// contiguous).  dy, dx, ddt, dB and dC are contiguous.  scratch holds
-// mamba2_ssd_bwd_scratch_floats floats.  Returns a cudaError_t code, 0 on
-// success.
+// dtype 0: x, B, C, dy, dx, dB, dC in f32 (the CUDA-core form); 1: in bf16
+// (the tensor-core form).  dt, A_log and D are f32 (A_log and D
+// contiguous); ddt (B, S, H), dA_log and dD (H,) come out in f32.  strides
+// (in elements): x's batch, step and head; dt's batch, step and head; B's
+// batch and step; C's batch and step; dy's batch, step and head (the last
+// axis of each is contiguous; the f32 form takes dy contiguous).  dx, ddt,
+// dB and dC are contiguous.  scratch holds mamba2_ssd_bwd_scratch_floats
+// floats.  Returns a cudaError_t code, 0 on success, or -(a CUresult) when
+// the bf16 form cannot make a tensor map.
 extern "C" int mamba2_ssd_bwd_launch(const void* x, const void* dt,
                                      const void* A_log, const void* Bm,
                                      const void* Cm, const void* D,
@@ -652,8 +663,8 @@ extern "C" int mamba2_ssd_bwd_launch(const void* x, const void* dt,
         return launch<float>(x, dt, A_log, Bm, Cm, D, dy, dx, ddt, dA_log, dB,
                              dC, dD, scratch, B, S, H, P, N, strides, s);
     if (dtype == 1)
-        return launch<__nv_bfloat16>(x, dt, A_log, Bm, Cm, D, dy, dx, ddt,
-                                     dA_log, dB, dC, dD, scratch, B, S, H, P,
-                                     N, strides, s);
+        return mamba2_ssd_bwd_wgmma_launch(x, dt, A_log, Bm, Cm, D, dy, dx,
+                                           ddt, dA_log, dB, dC, dD, scratch,
+                                           B, S, H, P, N, strides, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

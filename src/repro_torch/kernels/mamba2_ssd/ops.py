@@ -12,10 +12,11 @@ kernel.
 Its gradient: when grad is enabled and an input requires grad, ``ssd``
 goes through ``SSDFn``, an autograd Function whose forward is the same
 launch and whose backward launches the hand-written backward kernel (a
-library of its own, ``csrc/mamba2_ssd_bwd.cu``, on the CUDA cores for
-both dtypes) on CUDA tensors, adding one to ``bwd_launches()``, or runs
-its plain version (``ref.ssd_bwd_torch``) on CPU tensors.  Serving, with
-no gradient, launches exactly the forward.
+library of its own: ``csrc/mamba2_ssd_bwd.cu``, the C entry point and the
+f32 CUDA-core form, and ``csrc/mamba2_ssd_bwd_wgmma.cu``, the bf16
+tensor-core form, chunk-parallel) on CUDA tensors, adding one to
+``bwd_launches()``, or runs its plain version (``ref.ssd_bwd_torch``) on
+CPU tensors.  Serving, with no gradient, launches exactly the forward.
 """
 from __future__ import annotations
 
@@ -34,8 +35,10 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 #: the two forms' sources and the Hopper header the bf16 form includes
 SOURCES = (_CSRC / "mamba2_ssd.cu", _CSRC / "mamba2_ssd_wgmma.cu",
            _CSRC.parents[1] / "csrc" / "hopper.cuh")
-#: the backward kernel's source, a library of its own
-BWD_SOURCES = (_CSRC / "mamba2_ssd_bwd.cu",)
+#: the backward kernel's two forms' sources, a library of their own, and
+#: the Hopper header the bf16 form includes
+BWD_SOURCES = (_CSRC / "mamba2_ssd_bwd.cu", _CSRC / "mamba2_ssd_bwd_wgmma.cu",
+               _CSRC.parents[1] / "csrc" / "hopper.cuh")
 #: the dtypes of x, B, C and y the kernel takes, by the code its C entry
 #: point reads (dt, A_log and D are handed over in f32)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -106,7 +109,7 @@ def _bwd_launcher():
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     size = lib.mamba2_ssd_bwd_scratch_floats
-    size.argtypes = [ctypes.c_int] * 5
+    size.argtypes = [ctypes.c_int] * 6
     size.restype = ctypes.c_longlong
     return fn, size
 
@@ -228,10 +231,14 @@ def ssd_bwd(x, dt, A_log, B, C, D, dy):
     this launches the backward kernel on the current stream (one count in
     ``bwd_launches``), without synchronising, or raises, under what the
     forward takes; the kernel reads x, B, C and dy in their dtype (f32 or
-    bf16) and accumulates in f32.  It allocates an f32 scratch for the
-    chunks' entry states and the per-head partial sums of dB, dC, dA_log
-    and dD (168 MB of states and 168 MB each of dB and dC partials at
-    zamba2-2.7b's training shape).  CPU tensors run ``ssd_bwd_torch``."""
+    bf16) and accumulates in f32.  bf16 runs the tensor-core form, whose
+    TMA reads x, B, C and dy as the forward's does (``_tma_readable``
+    copies what it cannot); f32 the CUDA-core form.  It allocates an f32
+    scratch: in bf16 the chunks' entry states and the gradients leaving
+    them (168 MB each at zamba2-2.7b's training shape) and partial sums of
+    dB and dC per group of 8 heads (21 MB each); in f32 the entry states
+    and per-head partials of dB and dC (168 MB each).  CPU tensors run
+    ``ssd_bwd_torch``."""
     global _bwd_launches
     Bsz, S, H, P, N = _check(x, dt, A_log, B, C, D)
     if x.device.type == "cpu":
@@ -241,6 +248,8 @@ def ssd_bwd(x, dt, A_log, B, C, D, dy):
         raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} must match "
                          f"x {tuple(x.shape)} on {x.device}")
     dy = dy.to(x.dtype).contiguous()
+    if x.dtype == torch.bfloat16:
+        x, B, C, dy = (_tma_readable(t) for t in (x, B, C, dy))
     dt32, A32, D32 = dt.float(), A_log.float().contiguous(), \
         D.float().contiguous()
     dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
@@ -250,10 +259,11 @@ def ssd_bwd(x, dt, A_log, B, C, D, dy):
     dA, dD = (torch.empty((H,), dtype=torch.float32, device=x.device)
               for _ in range(2))
     fn, size = _bwd_launcher()
-    scratch = torch.empty((size(Bsz, S, H, P, N),), dtype=torch.float32,
-                          device=x.device)
-    strides = (ctypes.c_longlong * 10)(
-        *x.stride()[:3], *dt32.stride(), *B.stride()[:2], *C.stride()[:2])
+    scratch = torch.empty((size(DTYPES[x.dtype], Bsz, S, H, P, N),),
+                          dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_longlong * 13)(
+        *x.stride()[:3], *dt32.stride(), *B.stride()[:2], *C.stride()[:2],
+        *dy.stride()[:3])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), B.data_ptr(),
@@ -261,6 +271,10 @@ def ssd_bwd(x, dt, A_log, B, C, D, dy):
                  ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
                  dD.data_ptr(), scratch.data_ptr(), DTYPES[x.dtype], Bsz, S,
                  H, P, N, strides, stream)
+    if err < 0:
+        raise RuntimeError(f"mamba2_ssd backward: cuTensorMapEncodeTiled "
+                           f"failed (CUresult {-err}; 1 also when libcuda "
+                           f"has no such entry point)")
     if err != 0:
         raise RuntimeError(f"mamba2_ssd backward launch failed: CUDA error "
                            f"{err}")

@@ -101,8 +101,10 @@ def ssd_bwd_torch(x, dt, A_log, B, C, D, dy, chunk: int = 64, *,
 
     ``omit`` names terms to leave out, so that a check can show that its
     bound catches a backward that loses them: ``"carry"`` drops dS where
-    the reverse sweep leaves chunk n // 2 for the chunk before it, and
-    ``"decay_term"`` the exp(cum_L) sum(dS * S_c) term of dcum_L."""
+    the reverse sweep leaves chunk n // 2 for the chunk before it,
+    ``"decay_term"`` the exp(cum_L) sum(dS * S_c) term of dcum_L, and
+    ``"head_dcb"`` head 0's dcb from the sum over the heads that dB and dC
+    take (the sum the bf16 kernel forms per group of heads)."""
     Bsz, S, H, P = x.shape
     N = B.shape[-1]
     n = -(-S // chunk)
@@ -152,7 +154,10 @@ def ssd_bwd_torch(x, dt, A_log, B, C, D, dy, chunk: int = 64, *,
         w = g * cb[..., None] * dtb[:, None, :, :]
         dx_c = torch.einsum("blih,blhp->bihp", w, dyb)
         m = dW * g * cb[..., None]
-        dcb = (dW * g * dtb[:, None, :, :]).sum(-1)       # (B, t, i)
+        dcb_h = dW * g * dtb[:, None, :, :]               # (B, t, i, H)
+        if "head_dcb" in omit:
+            dcb_h = dcb_h[..., 1:]
+        dcb = dcb_h.sum(-1)                               # (B, t, i)
         dC_c = dC_c + torch.einsum("bli,bin->bln", dcb, Bb)
         dB_c = torch.einsum("bli,bln->bin", dcb, Cb)
         ddt_c = m.sum(1)                                  # (B, i, H)

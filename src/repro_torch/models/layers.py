@@ -23,11 +23,19 @@ NEG_INF = -1e30
 GLOBAL_WINDOW = 1 << 30
 
 
+def _needs_grad(x) -> bool:
+    """Whether autograd records what is computed from ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
-    """RMSNorm with the ``(1 + scale)`` convention, computed in f32."""
+    """RMSNorm with the ``(1 + scale)`` convention, computed in f32.  Under
+    grad, x is read through a second cast, as the reference writes it, so
+    that in bf16 x's gradient takes the reference's two roundings (one a
+    cast); without grad one cast gives the same values."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
+    out = (x.float() if _needs_grad(x) else xf) * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
 
 
@@ -54,13 +62,35 @@ def sigmoid(x):
     return torch.reciprocal(torch.exp(-x) + 1)
 
 
+class _SiLU(torch.autograd.Function):
+    """x * s with s = ``sigmoid(x)``; the gradient as the reference's
+    autodiff rounds it, each step in x's dtype: g s + (g x) (s (1 - s))
+    (the transpose of silu's tangent t s + x (t s (1 - s)), logistic's
+    derivative written as ans (1 - ans))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = sigmoid(x)
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
 def silu(x):
     """x * sigmoid(x) with the sigmoid written out (``sigmoid``), what the
     reference's ``jax.nn.silu`` computes in bf16.  ``F.silu`` rounds once;
     in bf16 that alone moves the logits of the 4-layer zamba2 smoke model
     0.1-0.2 from the reference's, beyond its 5e-2 (the conv and the gate
-    each take a silu in every layer)."""
-    return x * sigmoid(x)
+    each take a silu in every layer).  Its gradient rounds where the
+    reference's does (``_SiLU``); autograd of the written-out steps would
+    round at others, which moved zamba2's and the dense models' bf16
+    gradients away from the reference's.  Without grad, the same steps with
+    no Function around them."""
+    return _SiLU.apply(x) if _needs_grad(x) else x * sigmoid(x)
 
 
 def gelu(x):
@@ -71,10 +101,42 @@ def gelu(x):
     of a normal draw, which moves hubert's smoke logits by up to 0.09.
     The constants are host floats rounded to x's dtype: a product with
     one is exact in f32 and rounded once, as the reference's is, and no
-    constant is copied to the card."""
+    constant is copied to the card.  Under grad its gradient rounds where
+    the reference's does (``_GELU``)."""
+    return _GELU.apply(x) if _needs_grad(x) else _gelu_steps(x)[-1]
+
+
+def _gelu_steps(x):
+    """x^2, the tanh, the cdf and gelu(x), each step in x's dtype."""
     c1, c2 = (float(torch.tensor(c, dtype=x.dtype))
               for c in (0.044715, math.sqrt(2.0 / math.pi)))
-    return x * (0.5 * (1 + torch.tanh(c2 * (x + c1 * (x * x * x)))))
+    x2 = x * x
+    t = torch.tanh(c2 * (x + c1 * (x2 * x)))
+    cdf = 0.5 * (1 + t)
+    return x2, t, cdf, x * cdf
+
+
+class _GELU(torch.autograd.Function):
+    """``gelu``'s steps, with the gradient rounded where the reference's
+    autodiff rounds it, each step in x's dtype: the transposes of x^3's
+    tangent g (3 x^2), tanh's (g + g t)(1 - t) and the products and sums
+    around them, the three terms of x's gradient added in the order the
+    reference adds them."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x2, t, cdf, out = _gelu_steps(x)
+        ctx.save_for_backward(x, x2, t, cdf)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x2, t, cdf = ctx.saved_tensors
+        c1, c2 = (float(torch.tensor(c, dtype=x.dtype))
+                  for c in (0.044715, math.sqrt(2.0 / math.pi)))
+        a = (0.5 * (g * x)) * (1 - t)          # through cdf = 0.5 (1 + t)
+        v = c2 * (a + a * t)                   # through tanh, then c2 (.)
+        return (g * cdf + v) + (c1 * v) * (3 * x2)
 
 
 def mlp(x, p, act: str = "silu"):

@@ -132,10 +132,13 @@ def _forward_hubert(params, cfg, features, feat_mask, block_kv: int):
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
 
     def block(h, lp):
-        h = h + attention_block(rms_norm(h, lp["norm1"]), lp["attn"], cfg,
-                                positions, causal=False, window=GLOBAL_WINDOW,
-                                block_kv=block_kv)
-        return h + mlp(rms_norm(h, lp["norm2"]), lp["mlp"], cfg.mlp_act)
+        # the second norm reads the residual sum unrounded, as in the
+        # dense block
+        hm = h.float() + attention_block(
+            rms_norm(h, lp["norm1"]), lp["attn"], cfg, positions,
+            causal=False, window=GLOBAL_WINDOW, block_kv=block_kv).float()
+        f = mlp(rms_norm(hm, lp["norm2"]).to(h.dtype), lp["mlp"], cfg.mlp_act)
+        return hm.to(h.dtype) + f
 
     run = _remat(params)
     for lp in params["layers"]:
@@ -223,10 +226,13 @@ def _forward_zamba2(params, cfg, tokens, block_kv: int):
     for g in range(G):
         for lp in params["layers"][g * k:(g + 1) * k]:
             h = run(layer, h, lp)
-        h = h + attention_block(rms_norm(h, sp["norm1"]), sp["attn"], cfg,
-                                positions, causal=True, window=GLOBAL_WINDOW,
-                                block_kv=block_kv)
-        h = h + mlp(rms_norm(h, sp["norm2"]), sp["mlp"], cfg.mlp_act)
+        # the shared block's second norm reads the residual sum unrounded,
+        # as in the dense block
+        hm = h.float() + attention_block(
+            rms_norm(h, sp["norm1"]), sp["attn"], cfg, positions,
+            causal=True, window=GLOBAL_WINDOW, block_kv=block_kv).float()
+        f = mlp(rms_norm(hm, sp["norm2"]).to(h.dtype), sp["mlp"], cfg.mlp_act)
+        h = hm.to(h.dtype) + f
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, cfg, h), aux
 

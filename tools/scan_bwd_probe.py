@@ -4,7 +4,7 @@ training shapes, beside their forward kernels and their bounds.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 tools/scan_bwd_probe.py [--reps N]
+    python3 tools/scan_bwd_probe.py [--reps N] [--old PATH]
 
 It builds the four libraries (the SSD and WKV forwards and backwards),
 makes ``chip_smoke.py``'s inputs at the training shapes in bf16 (the SSD:
@@ -14,12 +14,19 @@ line a kernel: its ms a call (CUDA events over ``--reps`` calls after one
 warm-up), the bound (``chip_smoke.ssd_bwd_bound`` / ``wkv_bwd_bound`` for
 the backwards, ``ssd_bound`` / ``wkv_bound`` for the forwards, at this
 shape), and the device ms of each of its kernels under ``torch.profiler``
-(the backward's main kernel and its ``sum_parts_kernel``).  The last line
-is the card's name and power limit (``nvidia-smi``).
+(the backward's kernels).  With ``--old PATH`` (the root of an earlier
+source tree, e.g. ``git archive`` of an earlier commit unpacked under
+``trees/``) it also builds that tree's SSD backward library under a name of
+its own and times its bf16 call in turns with this tree's (this, old, old,
+this), each held to the plain version (``ssd_bwd_torch``) under
+``chip_smoke.py``'s per-element bound, on one card in one process: one
+``mamba2_ssd_bwd_vs_old`` line with both forms' times.  The last line is the
+card's name and power limit (``nvidia-smi``).
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 from pathlib import Path
@@ -56,9 +63,93 @@ def kernel_ms(fn) -> dict:
             if ev.device_type != DeviceType.CPU and ev.device_time_total > 0}
 
 
+def old_ssd_bwd(tree: Path):
+    """A function of (x, dt, A_log, B, C, D, dy) that runs ``tree``'s SSD
+    backward library (built under a name of its own) as that tree's
+    wrapper called it: the entry point of a tree with the tensor-core form
+    takes the dtype in its scratch size and dy's strides, an earlier one
+    neither."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mamba2_ssd import ops
+    csrc = tree / "src" / "repro_torch" / "kernels" / "mamba2_ssd" / "csrc"
+    sources = [csrc / "mamba2_ssd_bwd.cu"]
+    wgmma = csrc / "mamba2_ssd_bwd_wgmma.cu"
+    if wgmma.exists():
+        sources += [wgmma, csrc.parents[1] / "csrc" / "hopper.cuh"]
+    lib = build.load("mamba2_ssd_bwd_old", sources, {})
+    fn = lib.mamba2_ssd_bwd_launch
+    n_strides = 13 if wgmma.exists() else 10
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.mamba2_ssd_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * (6 if wgmma.exists() else 5)
+    size.restype = ctypes.c_longlong
+
+    def run(x, dt, A_log, B, C, D, dy):
+        Bsz, S, H, P = x.shape
+        N = B.shape[-1]
+        if wgmma.exists():
+            x, B, C, dy = (ops._tma_readable(t) for t in (x, B, C, dy))
+        dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+        ddt = torch.empty((Bsz, S, H), dtype=torch.float32, device=x.device)
+        dB = torch.empty((Bsz, S, N), dtype=x.dtype, device=x.device)
+        dC = torch.empty_like(dB)
+        dA, dD = (torch.empty((H,), dtype=torch.float32, device=x.device)
+                  for _ in range(2))
+        dims = (Bsz, S, H, P, N)
+        n = size(1, *dims) if wgmma.exists() else size(*dims)
+        scratch = torch.empty((n,), dtype=torch.float32, device=x.device)
+        strides = (ctypes.c_longlong * n_strides)(*(
+            *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
+            *dy.stride()[:3])[:n_strides])
+        err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
+                 C.data_ptr(), D.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                 ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                 dD.data_ptr(), scratch.data_ptr(), 1, *dims, strides,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"old SSD backward: error {err}")
+        return dx, ddt, dA, dB, dC, dD
+    return run
+
+
+def versus_old(tree: Path, args_, dy, reps: int) -> dict:
+    """This tree's and ``tree``'s bf16 SSD backward on the same inputs:
+    each against the plain version, then timed in turns (this, old, old,
+    this)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.mamba2_ssd import ops
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_bwd_torch
+    old = old_ssd_bwd(tree)
+    forms = {"this": lambda: ops.ssd_bwd(*args_, dy),
+             "old": lambda: old(*args_, dy)}
+    want = ssd_bwd_torch(*args_, dy, chunk=ops.CHUNK)
+    out = {}
+    for form, run in forms.items():
+        got = run()
+        torch.cuda.synchronize()
+        out[form] = {"excess": max(cs.excess(g, w, "bfloat16")
+                                   for g, w in zip(got, want)),
+                     "ms_all": []}
+        del got
+    del want
+    for form in ("this", "old", "old", "this"):
+        out[form]["ms_all"].append(
+            cs.time_ms(forms[form], reps=reps, warmup=2)[0])
+    for form in forms:
+        out[form]["ms"] = min(out[form]["ms_all"])
+        out[form]["kernels_ms"] = kernel_ms(forms[form])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--old", type=Path, default=None,
+                    help="root of an earlier source tree to time beside")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -94,6 +185,12 @@ def main(argv=None) -> int:
                           "ms": event_ms(fn, args.reps),
                           "bound_ms": bound[0], "bound_by": bound[1],
                           "kernels_ms": kernel_ms(fn)}), flush=True)
+    if args.old is not None:
+        print(json.dumps({"probe": "mamba2_ssd_bwd_vs_old",
+                          "dtype": "bfloat16", "old_tree": str(args.old),
+                          "bound_ms": runs["mamba2_ssd_bwd"][1][0],
+                          **versus_old(args.old, ssd_args, dy, args.reps)}),
+              flush=True)
     print(cs.nvidia_smi(), flush=True)
     return 0
 
