@@ -147,9 +147,14 @@ Each phase prints one JSON line:
   wkv_bwd          the same for the WKV backward kernel's five gradients
                    (rwkv6-1.6b's training shape in bf16 and f32, a ragged
                    length with r, k, v views of one tensor, every log_w at
-                   the clamp, a small head; the faults: the carried dS, the
-                   decay term (not at the clamp, where nothing carries),
-                   du)
+                   the clamp, a small head; bf16 on the chunk-parallel
+                   tensor-core form, f32 on the CUDA-core form; the faults:
+                   the carried dS, the decay term (not at the clamp, where
+                   nothing carries), du, one off-diagonal sub-block's pairs
+                   left out of dr's and dk's sums over E); two calls at
+                   rwkv6-1.6b's shape bit-identical; HGMMA in the bf16
+                   form's product kernels' SASS and no ptxas spill in the
+                   bf16 form (checked)
   lm_prefill       per model, in bf16, B = 2 x 2048 tokens: wall ms, kernel
                    launches, peak memory; the kernel path vs the plain
                    path in f32 (checked; deepseek-moe-16b on its first 8
@@ -2447,6 +2452,16 @@ WKV_BWD_CASES = [
     ("small-k16", 3, 200, 8, 16, "float32", "mixed"),
 ]
 WKV_BWD_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu"
+#: the backward's two forms: (kernels, the ones that do products, source);
+#: the C entry point is in WKV_BWD_SOURCE
+WKV_BWD_FORMS = {
+    "bfloat16": (["wkv6_bwd_walk_kernel_wgmma", "wkv6_bwd_chunk_kernel_wgmma",
+                  "wkv6_bwd_sum_u_kernel"],
+                 ["wkv6_bwd_walk_kernel_wgmma", "wkv6_bwd_chunk_kernel_wgmma"],
+                 "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd_wgmma.cu"),
+    "float32": (["wkv6_bwd_kernel", "sum_parts_kernel"], ["wkv6_bwd_kernel"],
+                WKV_BWD_SOURCE),
+}
 
 
 def wkv_bwd_bound(B, S, H, K, dtype):
@@ -2467,15 +2482,20 @@ def wkv_bwd_bound(B, S, H, K, dtype):
     return (*roofline(flops, nbytes, dtype), flops, nbytes)
 
 
-def wkv_bwd_phases(dev, ptxas) -> dict:
+def wkv_bwd_phases(dev, sass, ptxas) -> dict:
     """The WKV backward kernel against its plain version
-    (``wkv6_bwd_torch``) on every case, all five gradients under one
-    per-element bound, with three planted faults held to the same bound
-    (each must fail it): the carried dS dropped at the middle chunk and the
-    decay term of dcum_L left out (both ``omit``; not at the clamp, where
-    the state dies within a step), and du left out; the kernel's time, the plain version's and the bound; two calls at
-    rwkv6-1.6b's training shape giving the same bits.  Returns the kernel's
-    summary entry, less the main path's launches."""
+    (``wkv6_bwd_torch``) on every case (bf16 on the tensor-core form, f32
+    on the CUDA-core form), all five gradients under one per-element bound,
+    with four planted faults held to the same bound (each must fail it):
+    the carried dS dropped at the middle chunk and the decay term of dcum_L
+    left out (both ``omit``; not at the clamp, where the state dies within
+    a step), du left out, and one off-diagonal sub-block's pairs left out
+    of dr's and dk's sums over E (``omit=("subblock",)``); the kernel's
+    time, the plain version's and the bound; two calls at rwkv6-1.6b's
+    training shape giving the same bits.  Checks, where the toolkit shows
+    them, that each bf16 kernel that does products runs on the tensor cores
+    (HGMMA in its SASS) and that ptxas spills nothing in the bf16 form.
+    Returns the kernel's summary entry, less the main path's launches."""
     import torch
 
     from repro_torch.kernels.rwkv6 import ops
@@ -2498,7 +2518,8 @@ def wkv_bwd_phases(dev, ptxas) -> dict:
 
         def plain(*omit):
             return wkv6_bwd_torch(*args, do, chunk=ops.CHUNK, omit=omit)
-        faults = {"no_du": lambda: (grad_cat(zeroed(plain(), 4)), 0)}
+        faults = {"no_du": lambda: (grad_cat(zeroed(plain(), 4)), 0),
+                  "no_subblock": lambda: (grad_cat(plain("subblock")), 0)}
         if decay != "clamp":
             # at the clamp the state dies within a step: nothing to carry
             faults.update(
@@ -2525,13 +2546,30 @@ def wkv_bwd_phases(dev, ptxas) -> dict:
         emit("wkv_bwd", **row)
         del r, k, v, log_w, u, args, do
     torch.cuda.empty_cache()
-    return scan_bwd_summary(
-        "wkv6_bwd", rows, "rwkv6-train", WKV_BWD_SOURCE,
+    if isinstance(sass, dict):
+        for n in WKV_BWD_FORMS["bfloat16"][1]:
+            check(bool(sass.get(n)) and sass[n]["HGMMA"] > 0,
+                  f"{n} has no HGMMA in its SASS: {sass.get(n)}")
+    entry = scan_bwd_summary(
+        "wkv6_bwd", rows, "rwkv6-train", WKV_BWD_FORMS["bfloat16"][2],
         "src/repro/models/rwkv6.py:44",
         "XLA's autodiff of wkv6_chunked; the JAX package has no backward "
         "pallas_call",
         "rwkv6-1.6b training WKV: B=4, S=2048, H=32, K=64, bf16 r/k/v/u/do, "
-        "f32 log_w", ("wkv6_bwd_kernel", "sum_parts_kernel"), ptxas)
+        "f32 log_w",
+        [n for form in WKV_BWD_FORMS.values() for n in form[0]], ptxas)
+    for dt, form in entry["forms"].items():
+        kernels, _, source = WKV_BWD_FORMS[dt]
+        form.update(kernels=kernels, source=source,
+                    sass=({n: sass.get(n) for n in kernels}
+                          if isinstance(sass, dict) else sass),
+                    ptxas={e: v for e, v in entry["ptxas"].items()
+                           if e.split("<")[0] in kernels})
+    spilled = {e: v for e, v in entry["forms"]["bfloat16"]["ptxas"].items()
+               if v["spill_bytes"]}
+    check(bool(entry["forms"]["bfloat16"]["ptxas"]) and not spilled,
+          f"the bf16 WKV backward form spills: {spilled or 'no ptxas lines'}")
+    return entry
 
 
 def to_f32(tree):
@@ -3129,7 +3167,7 @@ def train_groups(arch: str) -> dict:
         flash = {g: TRAIN_GROUPS[g] for g in ("flash_fwd_ms", "flash_bwd_ms")}
     else:
         scan = {"wkv_fwd_ms": lambda n: "wkv6_kernel" in n,
-                "wkv_bwd_ms": lambda n: "wkv6_bwd_kernel" in n
+                "wkv_bwd_ms": lambda n: "wkv6_bwd_" in n
                 or "sum_parts_kernel" in n}
         flash = {}
     return {"gemm_ms": LM_GROUPS["gemm_ms"], **scan, **flash}
@@ -3346,7 +3384,7 @@ def main(argv=None) -> int:
     ssd_bwd = ssd_bwd_phases(dev, sass["mamba2_ssd_bwd"],
                              ptxas["mamba2_ssd_bwd"])
     wkv = wkv_phases(dev, sass["rwkv6"])
-    wkv_bwd = wkv_bwd_phases(dev, ptxas["rwkv6_bwd"])
+    wkv_bwd = wkv_bwd_phases(dev, sass["rwkv6_bwd"], ptxas["rwkv6_bwd"])
     launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0}
     for arch in LM_ARCHS:
         for k, n in lm_phases(dev, args.seed, arch).items():

@@ -2,7 +2,10 @@
 // k, v, log_w and u.  CUDA C++ for sm_90a, built with nvcc into a shared
 // library of its own with a plain C entry point
 // (repro_torch/kernels/build.py) and bound with ctypes
-// (repro_torch/kernels/rwkv6/ops.py, wkv6_bwd and WKV6Fn).
+// (repro_torch/kernels/rwkv6/ops.py, wkv6_bwd and WKV6Fn).  This file holds
+// the C entry point, which sends every bf16 call to the tensor-core form
+// (wkv6_bwd_wgmma.cu) and every f32 call to the CUDA-core form below, with
+// no fallback.
 //
 // Replaces no pallas_call: the JAX package's gradient of the WKV is XLA's
 // autodiff of src/repro/models/rwkv6.py::wkv6_chunked, and that is what this
@@ -45,9 +48,9 @@
 // TFLOP/s), against 0.37 GB of inputs and gradients (bf16 r, k, v, do and
 // their gradients, f32 log_w and its gradient), 0.11 ms at 3.35 TB/s.
 //
-// What the design does about it: this first form is simple, right and
-// deterministic, on the CUDA cores for both dtypes (bf16 is read and written
-// as bf16, every sum is f32); the tensor cores are later work.  One block of
+// What the design does about it: this form is simple, right and
+// deterministic, on the CUDA cores (it runs the f32 calls; bf16 ones go to
+// wkv6_bwd_wgmma.cu; every sum is f32).  One block of
 // 256 threads owns one (batch, head) and all K value columns, so no sum of
 // dr, dk or dlog_w crosses blocks, and makes two sweeps over its chunks:
 //   1. forward: recompute the state entering each chunk, S_c (f32, K x K),
@@ -66,11 +69,18 @@
 // strides (the model hands in views of the projections); do, dr, dk, dv and
 // dlog_w are contiguous.  About 119 KB of shared memory a block (over the
 // 48 KB default, so the launch opts in).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstddef>
+
+// the bf16 form (wkv6_bwd_wgmma.cu)
+long long wkv6_bwd_wgmma_scratch_floats(int B, int S, int H);
+int wkv6_bwd_wgmma_launch(const void* r, const void* k, const void* v,
+                          const void* log_w, const void* u, const void* dout,
+                          void* dr, void* dk, void* dv, void* dlog_w,
+                          void* du, void* scratch, int B, int S, int H, int K,
+                          const long long* strides, cudaStream_t stream);
 
 namespace {
 
@@ -96,13 +106,7 @@ static_assert(kSmemBytes <= 232448, "over the 227 KB a block can use");
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-}
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-}
 
 // Columns i = ai + 8 j (j < J) of row `at` of A (strictly below the
 // diagonal, zero elsewhere) into acc.  Cz holds cum in log2 units, Cz[t] =
@@ -485,17 +489,24 @@ int launch(const void* r, const void* k, const void* v, const void* lw,
 
 }  // namespace
 
-// The f32 scratch (in floats) the backward needs for these sizes.
-extern "C" long long wkv6_bwd_scratch_floats(int B, int S, int H, int K) {
-    return scratch_floats(B, S, H, K);
+// The f32 scratch (in floats) the backward needs for these sizes, by dtype
+// (0 f32, 1 bf16).
+extern "C" long long wkv6_bwd_scratch_floats(int dtype, int B, int S, int H,
+                                             int K) {
+    return dtype == 1 ? wkv6_bwd_wgmma_scratch_floats(B, S, H)
+                      : scratch_floats(B, S, H, K);
 }
 
-// dtype 0: r, k, v, do, dr, dk, dv in f32; 1: in bf16.  log_w is f32 and
-// dlog_w (B, S, H, K) comes out in f32; u and du are f32 contiguous (H, K).
-// strides (in elements): the batch, step and head strides of r, k, v and
-// log_w, in that order (the last axis of each is contiguous).  do, dr, dk,
-// dv and dlog_w are contiguous.  scratch holds wkv6_bwd_scratch_floats
-// floats.  Returns a cudaError_t code, 0 on success.
+// dtype 0: r, k, v, do, dr, dk, dv in f32 (the CUDA-core form); 1: in bf16
+// (the tensor-core form).  log_w is f32 and dlog_w (B, S, H, K) comes out in
+// f32; u and du are f32 contiguous (H, K).  strides (in elements): the
+// batch, step and head strides of r, k, v, log_w and do, in that order (the
+// last axis of each is contiguous; f32 takes do contiguous and reads only
+// the first twelve; bf16 reads each of them 16-byte aligned).  dr, dk, dv
+// and dlog_w are contiguous (B, S, H, K), but in bf16 dr, dk and dv have
+// rows of K rounded up to 8.  scratch holds wkv6_bwd_scratch_floats floats.
+// Returns a cudaError_t code, 0 on success, or -(a CUresult) when the bf16
+// form cannot make a tensor map.
 extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
                                const void* log_w, const void* u,
                                const void* dout, void* dr, void* dk, void* dv,
@@ -509,7 +520,7 @@ extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
         return launch<float>(r, k, v, log_w, u, dout, dr, dk, dv, dlog_w, du,
                              scratch, B, S, H, K, strides, s);
     if (dtype == 1)
-        return launch<__nv_bfloat16>(r, k, v, log_w, u, dout, dr, dk, dv,
+        return wkv6_bwd_wgmma_launch(r, k, v, log_w, u, dout, dr, dk, dv,
                                      dlog_w, du, scratch, B, S, H, K, strides,
                                      s);
     return static_cast<int>(cudaErrorInvalidValue);

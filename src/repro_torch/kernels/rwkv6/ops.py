@@ -12,10 +12,12 @@ through the kernel.
 Its gradient: when grad is enabled and an input requires grad, ``wkv6``
 goes through ``WKV6Fn``, an autograd Function whose forward is the same
 launch and whose backward launches the hand-written backward kernel (a
-library of its own, ``csrc/wkv6_bwd.cu``, on the CUDA cores for both
-dtypes) on CUDA tensors, adding one to ``bwd_launches()``, or runs its
-plain version (``ref.wkv6_bwd_torch``) on CPU tensors.  Serving, with no
-gradient, launches exactly the forward.
+library of its own: bf16 on the tensor cores, ``csrc/wkv6_bwd_wgmma.cu``,
+kernels ``wkv6_bwd_walk_kernel_wgmma``, ``wkv6_bwd_chunk_kernel_wgmma`` and
+``wkv6_bwd_sum_u_kernel``; f32 on the CUDA cores, ``csrc/wkv6_bwd.cu``,
+whose C entry point picks the form by dtype) on CUDA tensors, adding one to
+``bwd_launches()``, or runs its plain version (``ref.wkv6_bwd_torch``) on
+CPU tensors.  Serving, with no gradient, launches exactly the forward.
 """
 from __future__ import annotations
 
@@ -34,9 +36,11 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 #: the two forms' sources and the Hopper header the bf16 form includes
 SOURCES = (_CSRC / "wkv6.cu", _CSRC / "wkv6_wgmma.cu",
            _CSRC.parents[1] / "csrc" / "hopper.cuh")
-#: the backward kernel's source, a library of its own (chunks of
-#: ``CHUNK``, both dtypes on the CUDA cores)
-BWD_SOURCES = (_CSRC / "wkv6_bwd.cu",)
+#: the backward kernel's sources, a library of its own: the C entry point
+#: and the f32 form (chunks of ``CHUNK`` on the CUDA cores), the bf16 form
+#: (chunks of 64 on the tensor cores) and the Hopper header it includes
+BWD_SOURCES = (_CSRC / "wkv6_bwd.cu", _CSRC / "wkv6_bwd_wgmma.cu",
+               _CSRC.parents[1] / "csrc" / "hopper.cuh")
 #: the dtypes of r, k, v and o the kernel takes, by the code its C entry
 #: point reads (log_w and u are handed over in f32)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -122,7 +126,8 @@ def _bwd_launcher():
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     size = lib.wkv6_bwd_scratch_floats
-    size.argtypes = [ctypes.c_int] * 4
+    # dtype, B, S, H, K
+    size.argtypes = [ctypes.c_int] * 5
     size.restype = ctypes.c_longlong
     return fn, size
 
@@ -248,11 +253,14 @@ def wkv6_bwd(r, k, v, log_w, u, do):
     strided view comes back contiguous).  On CUDA tensors this launches the
     backward kernel on the current stream (one count in ``bwd_launches``),
     without synchronising, or raises, under what the forward takes; the
-    kernel reads r, k, v and do in their dtype (f32 or bf16) and log_w in
-    f32, and accumulates in f32 over chunks of ``CHUNK``.  It allocates an
-    f32 scratch for the chunks' entry states and the per-batch-row partial
-    sums of du (134 MB at rwkv6-1.6b's training shape).  CPU tensors run
-    ``wkv6_bwd_torch``."""
+    kernel reads r, k, v and do in their dtype and log_w in f32, and
+    accumulates in f32: bf16 on the tensor-core form over chunks of 64,
+    whose TMA reads tensors as the forward's does (an r, k, v, do or log_w
+    it cannot read is copied first, ``_tma_readable``), f32 on the
+    CUDA-core form over chunks of ``CHUNK``.  It allocates an f32 scratch
+    for the chunks' states and du's partial sums (bf16: each chunk's S_c
+    and G_c, 134 MB at rwkv6-1.6b's training shape; f32: the entry states,
+    134 MB).  CPU tensors run ``wkv6_bwd_torch``."""
     global _bwd_launches
     B, S, H, K = _check(r, k, v, log_w, u)
     if r.device.type == "cpu":
@@ -263,16 +271,22 @@ def wkv6_bwd(r, k, v, log_w, u, do):
                          f"r {tuple(r.shape)} on {r.device}")
     do = do.to(r.dtype).contiguous()
     lw32, u32 = log_w.float(), u.float().contiguous()
-    dr, dk, dv = (torch.empty((B, S, H, K), dtype=r.dtype, device=r.device)
+    bf16 = r.dtype == torch.bfloat16
+    if bf16:
+        r, k, v, lw32, do = map(_tma_readable, (r, k, v, lw32, do))
+    # the bf16 form stores dr, dk, dv with TMA: rows of a multiple of 16
+    # bytes
+    KO = K + (-K % (TMA_ALIGN // 2)) if bf16 else K
+    dr, dk, dv = (torch.empty((B, S, H, KO), dtype=r.dtype, device=r.device)
                   for _ in range(3))
     dlw = torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
     du = torch.empty((H, K), dtype=torch.float32, device=r.device)
     fn, size = _bwd_launcher()
-    scratch = torch.empty((size(B, S, H, K),), dtype=torch.float32,
-                          device=r.device)
-    strides = (ctypes.c_longlong * 12)(
+    scratch = torch.empty((size(DTYPES[r.dtype], B, S, H, K),),
+                          dtype=torch.float32, device=r.device)
+    strides = (ctypes.c_longlong * 15)(
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *lw32.stride()[:3])
+        *lw32.stride()[:3], *do.stride()[:3])
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw32.data_ptr(),
@@ -280,11 +294,16 @@ def wkv6_bwd(r, k, v, log_w, u, do):
                  dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
                  scratch.data_ptr(), DTYPES[r.dtype], B, S, H, K, strides,
                  stream)
+    if err < 0:
+        raise RuntimeError(f"rwkv6 wkv6 backward: cuTensorMapEncodeTiled "
+                           f"failed (CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"rwkv6 wkv6 backward launch failed: CUDA error "
                            f"{err}")
     with _count_lock:
         _bwd_launches += 1
+    if KO != K:
+        dr, dk, dv = (t[..., :K].contiguous() for t in (dr, dk, dv))
     return dr, dk, dv, dlw.to(log_w.dtype), du.to(u.dtype)
 
 

@@ -115,8 +115,11 @@ def wkv6_bwd_torch(r, k, v, log_w, u, do, chunk: int = 32, *, omit=()):
 
     ``omit`` names terms to leave out, so that a check can show that its
     bound catches a backward that loses them: ``"carry"`` drops dS where
-    the reverse sweep leaves chunk n // 2 for the chunk before it, and
-    ``"decay_term"`` the exp(cum_L) sum_c S_c dS term of dcum_L."""
+    the reverse sweep leaves chunk n // 2 for the chunk before it,
+    ``"decay_term"`` the exp(cum_L) sum_c S_c dS term of dcum_L, and
+    ``"subblock"`` one off-diagonal sub-block's pairs (t in steps 16-31, i
+    in steps 0-15 of every chunk: a sub-block the bf16 kernel forms as a
+    product of its own) from the sums over E of dr and dk."""
     B, S, H, K = r.shape
     n = -(-S // chunk)
     pad = n * chunk - S
@@ -159,6 +162,9 @@ def wkv6_bwd_torch(r, k, v, log_w, u, do, chunk: int = 32, *, omit=()):
         a = torch.einsum("bthk,bihk,btihk->btih", rb, kb, e)
         da = torch.where(tri, torch.einsum("bthv,bihv->btih", dob, vb), 0.0)
         dv = torch.einsum("btih,bthv->bihv", a, dob)
+        if "subblock" in omit:
+            da = da.clone()
+            da[:, 16:32, :16] = 0.0
         dr_a = torch.einsum("btih,bihk,btihk->bthk", da, kb, e)
         dk_a = torch.einsum("btih,bthk,btihk->bihk", da, rb, e)
         dr = dr + dr_a

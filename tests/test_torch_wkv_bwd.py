@@ -14,6 +14,14 @@ intra-chunk exponent would overflow f32; f32 at 2e-3 and bf16 at 5e-2 (atol
 and rtol, the tolerances of ``tests/test_torch_train.py``).  The terms a
 faulty backward could lose (the carried dS at the middle chunk, the decay
 term of dcum_L, du) are shown to move the gradient past those tolerances.
+The bf16 form's arithmetic (``csrc/wkv6_bwd_wgmma.cu``: chunks of 64, the
+sub-chunk factorisation of the sums over E, the per-(t, i, d) diagonal
+where a sub-chunk's cum falls too far, f32 operands split into bf16 parts),
+emulated in f32 at rwkv6-1.6b's head width, stays within the card's bound
+on slow, mixed and clamped decays; it leaves it with the E sums' operands in
+two parts instead of three, or with the states stored as bf16 hi + lo
+instead of f32 (why the kernel does neither), and the planted ``subblock``
+fault (one off-diagonal sub-block's pairs left out) leaves it too.
 On a card (``cuda`` marker, skipped without one): the backward kernel
 against its plain version (per element 2e-3 + 2e-3 |want| in f32,
 2e-3 + 1e-2 |want| in bf16, the bound ``chip_smoke.py`` holds), ``wkv6``
@@ -22,9 +30,12 @@ giving the same bits.  The card tests import nothing of JAX:
 
     python -m pytest -q -m cuda tests/test_torch_wkv_bwd.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6.ref import wkv6_bwd_torch, wkv6_torch
@@ -175,6 +186,193 @@ def test_each_term_matters_on_slow_decays(fault):
     over = max(float(((g - w).abs() - 2e-3 * (1 + w.abs())).max())
                for g, w in zip(bad, want))
     assert over > 0, fault
+
+
+#: the bf16 form's chunk, sub-chunk and the fall of cum (log2 units) past
+#: which its diagonal sub-blocks are formed per (t, i, d) (``kRange``)
+FORM_CHUNK, SUB, K_RANGE = 64, 16, 100.0
+#: bf16 parts of each f32 operand of the form's products: the walks' (kdec
+#: and r exp(cum_ex)), the E sums' (dA, R^ = r exp(cum_ex - c_{p-1}), K~ = k
+#: exp(c_j - cum)), the rest (A^T's K~ weighted per row sub-chunk, A, kdec);
+#: the states S_c and G_c are stored in f32 (None) and split into three
+#: parts where they enter a product
+FORM_PARTS = {"walk": 3, "esum": 3, "rest": 2, "state": None}
+
+
+def _rounded(t, parts):
+    """``t`` as a product's operand in the bf16 form: the sum of its first
+    ``parts`` bf16 parts (hi, then what hi leaves, ...); None keeps f32."""
+    if parts is None:
+        return t
+    out = torch.zeros_like(t)
+    for _ in range(parts):
+        out = out + (t - out).to(torch.bfloat16).float()
+    return out
+
+
+def _emulate_bf16_form(r, k, v, log_w, u, do, **parts):
+    """The bf16 form's arithmetic (``wkv6_bwd_wgmma.cu``) in f32 on the CPU,
+    vectorised over (batch, chunk, head): two state walks whose carry stays
+    f32 (S_c forward, G_c, the gradient of the state leaving chunk c, in
+    reverse), then each chunk of 64 on its own.  The sums over E use the
+    sub-chunk factorisation: with c_j the cum at the end of sub-chunk j
+    (c_{-1} = 0), Ks = exp(c_j - cum_i) and Rs = exp(cum_ex_t - c_{p-1})
+    (both <= 1), and Gv[p][j] = exp(c_{p-1} - c_j),
+        dr_t = sum_j Rs_t Gv[p][j] (dA[:, j] K~_j)_t,   K~ = k Ks,
+        dk_i = sum_p Ks_i Gv[p][j] (dA[p, :]^T R^_p)_i, R^ = r Rs,
+        A^T[i][t in p] = (k Ks Gv[p][j]) . R^_t,
+    over j < p, and the diagonal j = p too unless a sub-chunk's cum falls
+    more than ``K_RANGE`` in some channel of the chunk; then the diagonal
+    sub-blocks are evaluated per (t, i, d), exactly.  Each f32 operand is
+    rounded as the kernel feeds it (``FORM_PARTS``, overridden by
+    ``parts``)."""
+    parts = {**FORM_PARTS, **parts}
+    L = FORM_CHUNK
+    B, S, H, K = r.shape
+    n = -(-S // L)
+
+    def chunks(x):
+        return F.pad(x.float(), (0, 0, 0, 0, 0, n * L - S)).reshape(
+            B, n, L, H, K).permute(0, 1, 3, 2, 4)       # (B, n, H, L, K)
+    rc, kc, vc, lwc, doc = map(chunks, (r, k, v, log_w, do))
+    uf = u.float()[None, None, :, None, :]
+    cum = torch.cumsum(lwc, 3)
+    cx = cum - lwc
+    cl = cum[..., -1, :]
+    sub = torch.arange(L) // SUB
+    cref = cum[..., SUB - 1::SUB, :]                     # c_0 .. c_3
+    cprev = torch.cat([torch.zeros_like(cref[..., :1, :]),
+                       cref[..., :-1, :]], -2)           # c_{p-1}
+    Ks = torch.exp(cref[..., sub, :] - cum)
+    Rs = torch.exp(cx - cprev[..., sub, :])
+    dec = Ks * torch.exp(cl[..., None, :] - cref)[..., sub, :]
+    kdec = kc * dec                             # k exp(cum_L - cum_i)
+    ecx = Rs * torch.exp(cprev[..., sub, :])
+    Gv = torch.exp(cprev[..., :, None, :] - cref[..., None, :, :])
+    slow = ((cprev - cref) * math.log2(math.e) > K_RANGE).flatten(-2).any(-1)
+    fast = ~slow[..., None, None]
+
+    def walk(order, operand, other):
+        out, st = [None] * n, torch.zeros((B, H, K, K))
+        for c in order:
+            out[c] = _rounded(st, parts["state"])
+            st = st * torch.exp(cl[:, c])[..., None] + torch.einsum(
+                "bhtd,bhtc->bhdc", _rounded(operand[:, c], parts["walk"]),
+                other[:, c])
+        return torch.stack(out, 1)                       # (B, n, H, d, c)
+    Sc = walk(range(n), kdec, vc)
+    Gc = walk(reversed(range(n)), rc * ecx, doc)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool), -1)
+    same = sub[:, None] == sub[None, :]
+    E = torch.exp(torch.where((tri & same)[..., None], cx[..., :, None, :]
+                              - cum[..., None, :, :], -math.inf))
+    Rt = _rounded(rc * Rs, parts["esum"])
+    Kt = _rounded(kc * Ks, parts["esum"])
+
+    def valid(later, p):                    # sub-chunks after p, or p where fast
+        return later[None, None, None, :, None] | (
+            (sub == p)[None, None, None, :, None] & fast)
+    A = torch.zeros(B, n, H, L, L)
+    for p in range(4):
+        kp = torch.where(valid(sub < p, p),
+                         kc * Ks * Gv[..., p, :, :][..., sub, :], 0.0)
+        A[..., SUB * p:SUB * (p + 1), :] = torch.einsum(
+            "bnhid,bnhtd->bnhti", _rounded(kp, parts["rest"]),
+            _rounded(rc * Rs, 2)[..., SUB * p:SUB * (p + 1), :])
+    A = torch.where(slow[..., None, None] & same, torch.einsum(
+        "bnhtd,bnhid,bnhtid->bnhti", rc, kc, E), torch.where(tri, A, 0.0))
+    A = A + torch.diag_embed((rc * uf * kc).sum(-1))
+    dv = torch.einsum("bnhti,bnhtc->bnhic", _rounded(A, parts["rest"]), doc) \
+        + torch.einsum("bnhid,bnhdc->bnhic", _rounded(kdec, parts["rest"]),
+                       Gc)
+    dA = torch.where(tri, torch.einsum("bnhtc,bnhic->bnhti", doc, vc), 0.0)
+    dAr = _rounded(dA, parts["esum"])
+    o_state = torch.einsum("bnhtc,bnhdc->bnhtd", doc, Sc) * ecx
+    dr_e = torch.zeros_like(rc)
+    dk_e = torch.zeros_like(kc)
+    for j in range(4):
+        cols = slice(SUB * j, SUB * (j + 1))
+        dr_e = dr_e + torch.where(
+            valid(sub > j, j), Rs * Gv[..., :, j, :][..., sub, :]
+            * torch.einsum("bnhti,bnhid->bnhtd", dAr[..., cols],
+                           Kt[..., cols, :]), 0.0)
+        dk_e = dk_e + torch.where(
+            valid(sub < j, j), Ks * Gv[..., j, :, :][..., sub, :]
+            * torch.einsum("bnhti,bnhtd->bnhid", dAr[..., cols, :],
+                           Rt[..., cols, :]), 0.0)
+    diag = torch.where(slow[..., None, None], dA * same, 0.0)
+    dr_e = dr_e + torch.einsum("bnhti,bnhid,bnhtid->bnhtd", diag, kc, E)
+    dk_e = dk_e + torch.einsum("bnhti,bnhtd,bnhtid->bnhid", diag, rc, E)
+    dbeta = (doc * vc).sum(-1)[..., None]
+    dkdec = torch.einsum("bnhic,bnhdc->bnhid", vc, Gc)
+    kk = kdec * dkdec
+    dcx = rc * (o_state + dr_e)
+    dcum = -kc * dk_e
+    dcum[..., :-1, :] -= kk[..., :-1, :]
+    dcum[..., -1, :] += kk[..., :-1, :].sum(-2) + torch.exp(cl) * (
+        Sc * Gc).sum(-1)
+    dlw = torch.flip(torch.cumsum(torch.flip(dcum + dcx, [3]), 3), [3]) - dcx
+
+    def un(x):
+        return x.permute(0, 1, 3, 2, 4).reshape(B, n * L, H, K)[:, :S]
+    return (un(o_state + dr_e + dbeta * uf * kc).to(r.dtype),
+            un(dk_e + dbeta * uf * rc + dec * dkdec).to(k.dtype),
+            un(dv).to(v.dtype), un(dlw).to(log_w.dtype),
+            (dbeta * rc * kc).sum((0, 1, 3)).to(u.dtype))
+
+
+#: (B, S, H, K): rwkv6-1.6b's head width over eight chunks of the form
+EMULATION_SHAPE = (1, 512, 8, 64)
+
+
+@pytest.fixture(scope="module")
+def emulation_cases():
+    """Inputs, do and the plain backward (what the kernel is held to on the
+    card), in bf16, by decay."""
+    cache = {}
+
+    def get(decay, H=EMULATION_SHAPE[2]):
+        if (decay, H) not in cache:
+            B, S, _, K = EMULATION_SHAPE
+            args, do = _inputs(B, S, H, K, decay, True, dtype=torch.bfloat16)
+            cache[decay, H] = args, do, wkv6_bwd_torch(*args, do,
+                                                       chunk=ops.CHUNK)
+        return cache[decay, H]
+    return get
+
+
+@pytest.mark.parametrize("decay", ["slow", "mixed", "clamp"])
+def test_bf16_form_emulated_within_kernel_bound(emulation_cases, decay):
+    """With its operands split as the kernel splits them, the form's
+    roundings keep every gradient within the card's bf16 bound (2e-3 +
+    1e-2 |want|) of the plain version: on slow decays (the state carries
+    over the whole sequence), mixed ones and every log_w at the clamp,
+    where every chunk takes the per-(t, i, d) diagonal."""
+    args, do, want = emulation_cases(decay)
+    for name, g, w in zip(NAMES, _emulate_bf16_form(*args, do), want):
+        assert _excess(g, w, torch.bfloat16) <= 0, f"d{name}"
+
+
+@pytest.mark.parametrize("operand", ["esum", "state"])
+def test_bf16_form_needs_its_precision(emulation_cases, operand):
+    """Why the E sums' operands take three bf16 parts and the states stay
+    f32: dlog_w is a difference of dcum and dcum_ex (and of the state's
+    sum_c S_c G_c), whose terms cancel, so with the E sums' operands in two
+    parts, or S_c and G_c stored as bf16 hi + lo, dlog_w leaves the bound
+    on slow decays over 16 heads."""
+    args, do, want = emulation_cases("slow", H=16)
+    got = _emulate_bf16_form(*args, do, **{operand: 2})
+    assert _excess(got[3], want[3], torch.bfloat16) > 0
+
+
+def test_subblock_fault_leaves_the_bound(emulation_cases):
+    """``omit=("subblock",)`` (one off-diagonal sub-block's pairs left out
+    of dr's and dk's sums over E, the planted fault of the card's check)
+    puts dr and dk far past the bf16 bound on slow decays."""
+    args, do, want = emulation_cases("slow")
+    bad = wkv6_bwd_torch(*args, do, chunk=ops.CHUNK, omit=("subblock",))
+    for i in (0, 1):
+        assert _excess(bad[i], want[i], torch.bfloat16) > 1.0, NAMES[i]
 
 
 def test_function_only_under_grad_and_counts_nothing_on_cpu():

@@ -9,19 +9,23 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds the four libraries (the SSD and WKV forwards and backwards),
 makes ``chip_smoke.py``'s inputs at the training shapes in bf16 (the SSD:
 B 4 x 2048, 80 heads of 64, state 64, Mamba-2's slow decays; the WKV:
-B 4 x 2048, 32 heads of 64, the model's slow decays) and prints one JSON
-line a kernel: its ms a call (CUDA events over ``--reps`` calls after one
+B 4 x 2048, 32 heads of 64, the model's slow decays, and again with every
+log_w at the model's clamp of -8, where every chunk of the WKV backward's
+bf16 form takes its per-(t, i, d) diagonal) and prints one JSON line a
+kernel: its ms a call (CUDA events over ``--reps`` calls after one
 warm-up), the bound (``chip_smoke.ssd_bwd_bound`` / ``wkv_bwd_bound`` for
 the backwards, ``ssd_bound`` / ``wkv_bound`` for the forwards, at this
 shape), and the device ms of each of its kernels under ``torch.profiler``
-(the backward's kernels).  With ``--old PATH`` (the root of an earlier
-source tree, e.g. ``git archive`` of an earlier commit unpacked under
-``trees/``) it also builds that tree's SSD backward library under a name of
-its own and times its bf16 call in turns with this tree's (this, old, old,
-this), each held to the plain version (``ssd_bwd_torch``) under
-``chip_smoke.py``'s per-element bound, on one card in one process: one
-``mamba2_ssd_bwd_vs_old`` line with both forms' times.  The last line is the
-card's name and power limit (``nvidia-smi``).
+(the backward's kernels: for the WKV's bf16 form the walks, the product
+kernel and du's sum).  With ``--old PATH`` (the root of an earlier source
+tree, e.g. ``git archive`` of an earlier commit unpacked under ``trees/``)
+it also builds that tree's SSD and WKV backward libraries under names of
+their own and times each bf16 call in turns with this tree's (this, old,
+old, this), each held to the plain version (``ssd_bwd_torch``,
+``wkv6_bwd_torch``) under ``chip_smoke.py``'s per-element bound, on one
+card in one process: one ``mamba2_ssd_bwd_vs_old`` and one
+``wkv6_bwd_vs_old`` line with both forms' times and their kernels' ms.
+The last line is the card's name and power limit (``nvidia-smi``).
 """
 from __future__ import annotations
 
@@ -115,18 +119,63 @@ def old_ssd_bwd(tree: Path):
     return run
 
 
-def versus_old(tree: Path, args_, dy, reps: int) -> dict:
-    """This tree's and ``tree``'s bf16 SSD backward on the same inputs:
-    each against the plain version, then timed in turns (this, old, old,
-    this)."""
+def old_wkv_bwd(tree: Path):
+    """A function of (r, k, v, log_w, u, do) that runs ``tree``'s WKV
+    backward library (built under a name of its own) as that tree's wrapper
+    called it: the entry point of a tree with the tensor-core form takes
+    the dtype in its scratch size and do's strides, an earlier one
+    neither."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rwkv6 import ops
+    csrc = tree / "src" / "repro_torch" / "kernels" / "rwkv6" / "csrc"
+    sources = [csrc / "wkv6_bwd.cu"]
+    wgmma = csrc / "wkv6_bwd_wgmma.cu"
+    if wgmma.exists():
+        sources += [wgmma, csrc.parents[1] / "csrc" / "hopper.cuh"]
+    lib = build.load("rwkv6_bwd_old", sources, {})
+    fn = lib.wkv6_bwd_launch
+    n_strides = 15 if wgmma.exists() else 12
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.wkv6_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * (5 if wgmma.exists() else 4)
+    size.restype = ctypes.c_longlong
+
+    def run(r, k, v, log_w, u, do):
+        B, S, H, K = r.shape
+        do = do.contiguous()
+        lw, uf = log_w.float(), u.float().contiguous()
+        if wgmma.exists():
+            r, k, v, lw, do = map(ops._tma_readable, (r, k, v, lw, do))
+        dr, dk, dv = (torch.empty((B, S, H, K), dtype=r.dtype,
+                                  device=r.device) for _ in range(3))
+        dlw = torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
+        du = torch.empty((H, K), dtype=torch.float32, device=r.device)
+        n = size(1, B, S, H, K) if wgmma.exists() else size(B, S, H, K)
+        scratch = torch.empty((n,), dtype=torch.float32, device=r.device)
+        strides = (ctypes.c_longlong * n_strides)(*(
+            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *lw.stride()[:3], *do.stride()[:3])[:n_strides])
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                 uf.data_ptr(), do.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
+                 scratch.data_ptr(), 1, B, S, H, K, strides,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"old WKV backward: error {err}")
+        return dr, dk, dv, dlw, du
+    return run
+
+
+def versus_old(this, old, plain, reps: int) -> dict:
+    """Two forms of one backward on the same inputs: each against the
+    plain version, then timed in turns (this, old, old, this)."""
     import torch
     import chip_smoke as cs
-    from repro_torch.kernels.mamba2_ssd import ops
-    from repro_torch.kernels.mamba2_ssd.ref import ssd_bwd_torch
-    old = old_ssd_bwd(tree)
-    forms = {"this": lambda: ops.ssd_bwd(*args_, dy),
-             "old": lambda: old(*args_, dy)}
-    want = ssd_bwd_torch(*args_, dy, chunk=ops.CHUNK)
+    forms = {"this": this, "old": old}
+    want = plain()
     out = {}
     for form, run in forms.items():
         got = run()
@@ -170,6 +219,8 @@ def main(argv=None) -> int:
     wkv_args = cs.wkv_inputs(gen, B2, S2, H2, K, torch.bfloat16, "slow")
     do = torch.randn(wkv_args[0].shape, generator=gen,
                      device=dev).to(torch.bfloat16)
+    clamp_args = (*wkv_args[:3], torch.full_like(wkv_args[3], -8.0),
+                  wkv_args[4])
     runs = {
         "mamba2_ssd_bwd": (lambda: ssd_ops.ssd_bwd(*ssd_args, dy),
                            cs.ssd_bwd_bound(B, S, H, P, N, "bfloat16")),
@@ -177,6 +228,8 @@ def main(argv=None) -> int:
                        cs.ssd_bound(B, S, H, P, N, "bfloat16")),
         "wkv6_bwd": (lambda: wkv_ops.wkv6_bwd(*wkv_args, do),
                      cs.wkv_bwd_bound(B2, S2, H2, K, "bfloat16")),
+        "wkv6_bwd_clamp": (lambda: wkv_ops.wkv6_bwd(*clamp_args, do),
+                           cs.wkv_bwd_bound(B2, S2, H2, K, "bfloat16")),
         "rwkv6": (lambda: wkv_ops.wkv6(*wkv_args),
                   cs.wkv_bound(B2, S2, H2, K, "bfloat16")),
     }
@@ -186,11 +239,25 @@ def main(argv=None) -> int:
                           "bound_ms": bound[0], "bound_by": bound[1],
                           "kernels_ms": kernel_ms(fn)}), flush=True)
     if args.old is not None:
-        print(json.dumps({"probe": "mamba2_ssd_bwd_vs_old",
-                          "dtype": "bfloat16", "old_tree": str(args.old),
-                          "bound_ms": runs["mamba2_ssd_bwd"][1][0],
-                          **versus_old(args.old, ssd_args, dy, args.reps)}),
-              flush=True)
+        from repro_torch.kernels.mamba2_ssd.ref import ssd_bwd_torch
+        from repro_torch.kernels.rwkv6.ref import wkv6_bwd_torch
+        old_ssd, old_wkv = old_ssd_bwd(args.old), old_wkv_bwd(args.old)
+        pairs = {
+            "mamba2_ssd_bwd": (
+                lambda: ssd_ops.ssd_bwd(*ssd_args, dy),
+                lambda: old_ssd(*ssd_args, dy),
+                lambda: ssd_bwd_torch(*ssd_args, dy, chunk=ssd_ops.CHUNK)),
+            "wkv6_bwd": (
+                lambda: wkv_ops.wkv6_bwd(*wkv_args, do),
+                lambda: old_wkv(*wkv_args, do),
+                lambda: wkv6_bwd_torch(*wkv_args, do, chunk=wkv_ops.CHUNK)),
+        }
+        for name, (this, old, plain) in pairs.items():
+            print(json.dumps({"probe": f"{name}_vs_old", "dtype": "bfloat16",
+                              "old_tree": str(args.old),
+                              "bound_ms": runs[name][1][0],
+                              **versus_old(this, old, plain, args.reps)}),
+                  flush=True)
     print(cs.nvidia_smi(), flush=True)
     return 0
 
