@@ -190,12 +190,31 @@ Each phase prints one JSON line:
                    losses; launches a step: 108 SSD forward, 54 backward, 9
                    flash each way; 48 WKV forward, 24 backward; step ms,
                    tokens/s, peak memory) and a step's device time by group
+  sharded_lm       the sharded entry points on a one-card (1, 1)
+                   data,model mesh (a one-rank NCCL group), bf16, full
+                   width, each against its unsharded step on the same
+                   parameters: make_sharded_prefill of qwen3-8b,
+                   zamba2-2.7b, rwkv6-1.6b (B = 2 x 2048; launches
+                   checked: 36 flash; 9 flash and 54 SSD; 24 WKV),
+                   make_sharded_decode of qwen3-8b (4 requests x 16 new
+                   tokens, equal to greedy_generate's), one
+                   make_sharded_train_step of h2o-danube-1.8b (B = 4 x
+                   2048; 48 forward and 24 backward flash launches): the
+                   largest difference (bound 5e-2, checked), sharded and
+                   unsharded ms (median of 3 warm calls)
+  dryrun           python -m repro_torch.launch.dryrun --arch qwen3-8b
+                   --shape all --mesh single in a subprocess: every
+                   non-skipped cell ok (checked), report.summary
+  dryrun_roofline  the traced roofline of sharded_lm's qwen3-8b prefill
+                   shape on a (1, 1) mesh beside its measured ms, and
+                   model_flops / (measured s x 989e12)
   kernels          the summary line of every kernel (cgra_exec's launches
                    by path: run_batch, stream, service, breaker, sharded,
                    cluster and cluster_heal from the workers' engines, dse,
                    traced; flash_attention's, mamba2_ssd's and rwkv6's:
-                   serving, training; the three backward kernels' from
-                   training)
+                   serving, training, sharded (sharded_lm); the flash
+                   backward's training and sharded, the other two
+                   backward kernels' from training)
 
 The raw ``nvidia-smi`` line comes next, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -208,6 +227,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -3331,6 +3351,390 @@ def recurrent_train_phases(dev, seed: int, arch: str) -> dict:
     return run
 
 
+#: the sharded serving paths (one prefill each, qwen3-8b's decode too)
+SHARDED_ARCHS = ("qwen3-8b", "zamba2-2.7b", "rwkv6-1.6b")
+#: the dry-run phase's model; its cells are traced on the 16x16 mesh
+DRYRUN_ARCH = "qwen3-8b"
+DRYRUN_LIMIT_S = 600
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL process group on the card, destroyed on the way
+    out."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def median_ms(fn, reps: int = 3) -> float:
+    """Median wall ms of ``reps`` warm calls (one call first, untimed),
+    each ended by a device synchronize: the host's time is the step's
+    time where the host holds the card back."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[len(walls) // 2]
+
+
+def max_diff(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def profiled_ms(fn, reps: int = 3) -> tuple:
+    """(median wall ms, median device-busy ms) of ``reps`` warm calls, each
+    under ``torch.profiler`` (the kernels' own device time) and ended by a
+    synchronize: 1 - busy / wall is the share of the call the card sat
+    idle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    walls, busy = [], []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        busy.append(sum(e.self_device_time_total
+                        for e in prof.key_averages()) / 1e3)
+    return sorted(walls)[reps // 2], sorted(busy)[reps // 2]
+
+
+def adamw_ms(fn, reps: int = 3) -> float:
+    """Median ms of the AdamW update inside ``reps`` warm train steps
+    ``fn()``, a synchronize on both sides of it (``train_step``'s
+    ``adamw_update`` wrapped while they run)."""
+    import torch
+    from repro_torch.train import train_step as ts
+    update, times = ts.adamw_update, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    ts.adamw_update = timed
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        ts.adamw_update = update
+    return sorted(times)[reps // 2]
+
+
+def leaves_of(tree, path=()):
+    """(path, tensor) of a tree of nested dicts and lists, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves_of(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves_of(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def scaled_diff(got, want) -> float:
+    """max |got - want| over the largest |want| (0 where both are 0)."""
+    scale = float(want.float().abs().max())
+    diff = max_diff(got, want)
+    return diff / scale if scale else diff
+
+
+def sharded_lm_phases(dev, seed: int) -> dict:
+    """The sharded entry points on a one-card (1, 1) ``data,model`` mesh
+    (a one-rank NCCL group), at full width in bf16, each against its
+    unsharded step on the same parameters: ``make_sharded_prefill`` of
+    qwen3-8b, zamba2-2.7b and rwkv6-1.6b (B = 2 x 2048; the launches of a
+    prefill checked: 36 flash; 9 flash and 54 SSD; 24 WKV),
+    ``make_sharded_decode`` of qwen3-8b (4 requests x 16 new tokens, equal
+    to ``greedy_generate``'s), and one ``make_sharded_train_step`` of
+    h2o-danube-1.8b (B = 4 x 2048; 48 forward and 24 backward flash
+    launches; the loss and every updated parameter).  A one-card mesh
+    shards nothing: each line prints the largest difference from the
+    unsharded output (bound 5e-2, checked) and both times (median of 3
+    warm calls).  A wrapper that receives a ``DTensor`` raises.  Returns
+    the sharded path's launches by kernel.
+
+    The train step is held by its gradients too: its gradient norm within
+    2e-3 and each AdamW moment (m, v) within 2e-3 of its leaf's largest
+    value (checked), since one Adam step moves each parameter by about lr
+    whatever its gradient; at warm-up 1 that first step's lr is the full
+    3e-4, which bf16 parameters of about 0.02 keep.  The decode and train
+    lines also split the time: the decode step's device-busy ms (its idle
+    share) and the train step's AdamW ms, sharded beside unsharded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.interop import lm_leaves, map_lm_tree
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import init_params
+    from repro_torch.serve.serve_step import make_sharded_prefill, prefill_fn
+    from repro_torch.sharding.specs import distribute, full, to_shardings
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (make_sharded_train_step,
+                                              make_train_state,
+                                              train_step_fn)
+
+    mods = {"flash_attention": fa_ops, "mamba2_ssd": ssd_ops,
+            "rwkv6": wkv_ops}
+    launches = dict.fromkeys(list(mods) + ["flash_attention_bwd"], 0)
+
+    def counted(fn):
+        """``fn()`` with every kernel count set to 0 before it; returns
+        (its result, the launches it made by kernel)."""
+        for mod in mods.values():
+            mod.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        made = {k: mod.launches() for k, mod in mods.items()}
+        made["flash_attention_bwd"] = fa_ops.bwd_launches()
+        for k, n in made.items():
+            launches[k] += n
+        return out, made
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rows = {}
+    with one_rank_group():
+        mesh.device_mesh("cuda")
+        for arch in SHARDED_ARCHS:
+            cfg = get_config(arch)
+            params = init_params(torch.Generator(device=dev).manual_seed(
+                seed), cfg, dev)
+            if cfg.family == "zamba2":
+                mamba2_decay_init(params["layers"], torch.Generator(
+                    device=dev).manual_seed(seed + 1))
+            rng = np.random.default_rng(seed)
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab, (PREFILL_B, PREFILL_S)).astype(np.int32)
+            ).to(dev)}
+            step, (p_specs, _) = make_sharded_prefill(cfg, mesh, PREFILL_B)
+            sparams = distribute(params, to_shardings(p_specs, mesh))
+            plain = prefill_fn(cfg)
+            want = plain(params, batch)
+            got, made = counted(lambda: step(sparams, batch).full_tensor())
+            expected = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6": 0,
+                        "flash_attention_bwd": 0}
+            if cfg.family == "zamba2":
+                expected.update(flash_attention=cfg.n_layers
+                                // cfg.shared_attn_every,
+                                mamba2_ssd=cfg.n_layers)
+            elif cfg.family == "rwkv6":
+                expected["rwkv6"] = cfg.n_layers
+            else:
+                expected["flash_attention"] = cfg.n_layers
+            check(made == expected, f"sharded {arch} prefill launched "
+                                    f"{made}, expected {expected}")
+            diff = max_diff(got, want)
+            check(diff <= 5e-2, f"sharded {arch} prefill differs from the "
+                                f"unsharded one by {diff}")
+            rows[arch, "prefill"] = ms = {
+                "sharded_ms": median_ms(lambda: step(sparams, batch)),
+                "unsharded_ms": median_ms(lambda: plain(params, batch))}
+            emit("sharded_lm", arch=arch, step="prefill", mesh=[1, 1],
+                 B=PREFILL_B, S=PREFILL_S, launches=made,
+                 max_abs_diff=diff, bound=5e-2, **ms)
+            if arch == "qwen3-8b":
+                rows[arch, "decode"] = sharded_decode(
+                    cfg, params, sparams, mesh, seed, dev, counted)
+            del params, sparams, got, want
+            torch.cuda.empty_cache()
+
+        cfg = get_config(TRAIN_ARCH)
+        opt = OptConfig(total_steps=100, warmup_steps=1)
+        params = init_params(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, dev)
+        state = make_train_state(cfg, opt, params)
+        tstep, (p_specs, o_specs, _) = make_sharded_train_step(
+            cfg, opt, mesh, TRAIN_B)
+        sparams = distribute(map_lm_tree(params, lambda p, i, t: t.clone()),
+                             to_shardings(p_specs, mesh))
+        sstate = distribute(map_lm_tree(state, lambda p, i, t: t.clone()),
+                            to_shardings(o_specs, mesh))
+        batch = {k: torch.from_numpy(a).to(dev) for k, a in host_batch(
+            cfg, DataConfig(seed=seed, global_batch=TRAIN_B,
+                            seq_len=TRAIN_S), 0).items()}
+        plain = train_step_fn(cfg, opt)
+        _, _, want = plain(params, state, batch)
+        (sparams, sstate, got), made = counted(
+            lambda: tstep(sparams, sstate, batch))
+        expected = {"flash_attention": 2 * cfg.n_layers, "mamba2_ssd": 0,
+                    "rwkv6": 0, "flash_attention_bwd": cfg.n_layers}
+        check(made == expected, f"sharded {TRAIN_ARCH} step launched "
+                                f"{made}, expected {expected}")
+        loss_diff = abs(float(got["total_loss"]) - float(want["total_loss"]))
+        new = {(p, i): t for p, i, t in lm_leaves(full(sparams))}
+        param_diff = max(max_diff(new[p, i], t)
+                         for p, i, t in lm_leaves(params))
+        gnorm_diff = abs(float(got["grad_norm"]) / float(want["grad_norm"])
+                         - 1)
+        moments = dict(leaves_of(full(sstate)["opt"]["state"]))
+        moment_diff = max(scaled_diff(moments[path], t) for path, t in
+                          leaves_of(state["opt"]["state"]))
+        check(loss_diff <= 5e-2 and param_diff <= 5e-2,
+              f"sharded {TRAIN_ARCH} step: loss differs by {loss_diff}, "
+              f"parameters by {param_diff}")
+        check(gnorm_diff <= 2e-3 and moment_diff <= 2e-3,
+              f"sharded {TRAIN_ARCH} step: gradient norm differs by "
+              f"{gnorm_diff} of it, the AdamW moments by {moment_diff} of "
+              f"their scale")
+        del new, moments
+        rows[TRAIN_ARCH, "train"] = ms = {
+            "sharded_ms": median_ms(lambda: tstep(sparams, sstate, batch)),
+            "unsharded_ms": median_ms(lambda: plain(params, state, batch)),
+            "sharded_adamw_ms": adamw_ms(
+                lambda: tstep(sparams, sstate, batch)),
+            "unsharded_adamw_ms": adamw_ms(
+                lambda: plain(params, state, batch))}
+        emit("sharded_lm", arch=TRAIN_ARCH, step="train", mesh=[1, 1],
+             B=TRAIN_B, S=TRAIN_S, launches=made,
+             loss=float(got["total_loss"]), loss_diff=loss_diff,
+             max_abs_diff=param_diff, bound=5e-2,
+             grad_norm=float(got["grad_norm"]), grad_norm_rel_diff=gnorm_diff,
+             moment_scaled_diff=moment_diff, gradient_bound=2e-3,
+             lr=float(got["lr"]), **ms)
+        del params, state, sparams, sstate
+        torch.cuda.empty_cache()
+    check("jax" not in sys.modules and "repro" not in sys.modules,
+          "the sharded path imported jax or the JAX package")
+    return launches, rows
+
+
+def sharded_decode(cfg, params, sparams, mesh, seed, dev, counted) -> dict:
+    """qwen3-8b through ``make_sharded_decode``: ``greedy_generate``'s loop
+    (left-padded prompts fed a token at a time, then 16 greedy tokens) on
+    the sharded step, its tokens equal to ``greedy_generate``'s; ms per
+    decode step of both (median of 3 warm steps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models.lm import init_cache
+    from repro_torch.serve.serve_step import decode_fn, make_sharded_decode
+
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, cfg.vocab, rng.integers(4, 12))
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    max_len = 64 + SERVE_NEW
+    want = greedy_generate(params, cfg, prompts, SERVE_NEW, max_len=max_len)
+    dstep, _ = make_sharded_decode(cfg, mesh, SERVE_REQUESTS)
+    maxp = max(len(p) for p in prompts)
+    padded = np.zeros((SERVE_REQUESTS, maxp), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, maxp - len(p):] = p
+    padded = torch.from_numpy(padded).to(dev)
+
+    def generate():
+        cache = init_cache(cfg, SERVE_REQUESTS, max_len, device=dev)
+        for t in range(maxp):
+            tok, _, cache = dstep(sparams, cache, padded[:, t:t + 1])
+        out = []
+        for _ in range(SERVE_NEW):
+            out.append(tok.full_tensor())
+            tok, _, cache = dstep(sparams, cache, tok)
+        return torch.cat(out, dim=1).cpu().numpy(), cache, tok
+    (got, cache, tok), made = counted(generate)
+    differing = int((got != want).sum())
+    check(differing == 0, f"sharded qwen3-8b decode: {differing} tokens "
+                          f"differ from greedy_generate's")
+    check(not any(made.values()), f"decode launched kernels: {made}")
+    plain_cache = init_cache(cfg, SERVE_REQUESTS, max_len, device=dev)
+    plain_cache["len"] = cache["len"]
+    plain_tok = tok.full_tensor()
+    decode = decode_fn(cfg)
+    ms = {"sharded_ms": median_ms(lambda: dstep(sparams, cache, tok)),
+          "unsharded_ms": median_ms(lambda: decode(params, plain_cache,
+                                                   plain_tok))}
+    for name, fn in (("sharded", lambda: dstep(sparams, cache, tok)),
+                     ("unsharded", lambda: decode(params, plain_cache,
+                                                  plain_tok))):
+        wall, busy = profiled_ms(fn)
+        ms.update({f"{name}_profiled_ms": wall, f"{name}_busy_ms": busy,
+                   f"{name}_idle_share": 1 - busy / wall})
+    emit("sharded_lm", arch=cfg.name, step="decode", mesh=[1, 1],
+         requests=SERVE_REQUESTS, new_tokens=SERVE_NEW, prompt=maxp,
+         tokens_differing=differing, launches=made, per="decode step",
+         **ms)
+    return ms
+
+
+def dryrun_phase(prefill_ms: float) -> None:
+    """``python -m repro_torch.launch.dryrun --arch qwen3-8b --shape all
+    --mesh single`` in a subprocess into a temporary directory: every
+    non-skipped cell ok (checked), ``report.summary`` printed.  Then the
+    roofline of ``sharded_lm``'s own qwen3-8b prefill (B = 2 x 2048) on a
+    (1, 1) mesh, traced here under a fake group of one rank, beside the
+    measured prefill ms: model_flops / (measured s x 989e12), the share of
+    the card's peak the whole step reaches."""
+    from repro_torch.analysis import report
+    from repro_torch.analysis.roofline import (PEAK_FLOPS_BF16,
+                                               analyze_per_device,
+                                               model_flops)
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import fake_group, lower_cell
+    from repro_torch.launch.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_ARCH, "--shape", "all", "--mesh", "single", "--out",
+             tmp], env={**os.environ, "PYTHONPATH": str(SRC)},
+            capture_output=True, text=True, timeout=DRYRUN_LIMIT_S)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"dry-run failed: {proc.stderr[-2000:]}")
+        cells = report.load(Path(tmp))
+        bad = [c["cell"] for c in cells if c["status"] == "error"]
+        check(not bad, f"dry-run cells in error: {bad}")
+        emit("dryrun", arch=DRYRUN_ARCH, mesh="pod16x16", wall_s=wall,
+             summary=report.summary(cells),
+             cells=[{"cell": c["cell"], "status": c["status"],
+                     "trace_s": c.get("compile_s"),
+                     "bottleneck": c.get("roofline", {}).get("bottleneck"),
+                     "roofline_fraction": c.get("roofline", {}).get(
+                         "roofline_fraction")} for c in cells])
+    shape = ShapeSpec("sharded_lm_prefill", PREFILL_S, PREFILL_B, "prefill")
+    with fake_group(1):
+        cfg, _, cost, mem = lower_cell(DRYRUN_ARCH, shape, make_mesh(
+            (1, 1), ("data", "model")), "1x1")
+    mflops = model_flops(cfg, "prefill", PREFILL_S, PREFILL_B)
+    roof = analyze_per_device(DRYRUN_ARCH, shape.name, "1x1", 1, cost,
+                              mflops, mem["argument_size_in_bytes"]
+                              + mem["temp_size_in_bytes"]).to_dict()
+    emit("dryrun_roofline", arch=DRYRUN_ARCH, B=PREFILL_B, S=PREFILL_S,
+         mesh=[1, 1], t_compute_ms=roof["t_compute_s"] * 1e3,
+         t_memory_ms=roof["t_memory_s"] * 1e3,
+         t_collective_ms=roof["t_collective_s"] * 1e3,
+         bottleneck=roof["bottleneck"], model_flops=mflops,
+         trace_flops=roof["hlo_flops"], trace_bytes=roof["hlo_bytes"],
+         measured_prefill_ms=prefill_ms,
+         step_share=mflops / (prefill_ms / 1e3 * PEAK_FLOPS_BF16))
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3390,12 +3794,18 @@ def main(argv=None) -> int:
         for k, n in lm_phases(dev, args.seed, arch).items():
             launches[k] += n
     train = lm_train_phases(dev, args.seed)
+    sharded, rows = sharded_lm_phases(dev, args.seed)
+    dryrun_phase(rows[DRYRUN_ARCH, "prefill"]["sharded_ms"])
     for entry, kernel in ((flash, "flash_attention"), (ssd, "mamba2_ssd"),
                           (wkv, "rwkv6")):
         entry["launches_by_path"] = {"serving": launches[kernel],
-                                     "training": train[kernel]}
+                                     "training": train[kernel],
+                                     "sharded": sharded[kernel]}
         entry["launches"] = sum(entry["launches_by_path"].values())
-    flash_bwd["launches"] = train["flash_attention_bwd"]
+    flash_bwd["launches_by_path"] = {
+        "training": train["flash_attention_bwd"],
+        "sharded": sharded["flash_attention_bwd"]}
+    flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
     ssd_bwd["launches"] = train["mamba2_ssd_bwd"]
     wkv_bwd["launches"] = train["rwkv6_bwd"]
     entries = [cgra, flash, flash_bwd, ssd, ssd_bwd, wkv, wkv_bwd]

@@ -14,6 +14,11 @@ in the manifest; numpy has no such dtypes, so the port goes through
 records the step, the time, each leaf's shape and dtype, and ``extra``.
 A step directory is published by an atomic rename; ``keep`` bounds how
 many are kept.
+
+Sharded trees: ``save`` gathers each ``DTensor`` to its full tensor (every
+rank calls it, in the same order), rank 0 writes and the ranks meet at a
+barrier; ``restore(..., shardings=)`` re-shards on load, as the reference's
+elastic path does: each rank keeps its own shard of each stored array.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.interop import lm_groups, lm_leaves, map_lm_tree
+from repro_torch.sharding.ctx import is_dtensor
+from repro_torch.sharding.specs import spec_at
 
 # npz cannot round-trip these; store them bit-exactly as a same-width integer
 # view and record the true dtype in the manifest
@@ -41,6 +48,11 @@ _VIEW_DECODE = {name: (dt, view) for dt, (name, view, _) in
                 _VIEW_ENCODE.items()}
 
 
+def _sharded(tree) -> bool:
+    """Whether ``tree`` holds a ``DTensor`` (then every rank saves it)."""
+    return any(is_dtensor(leaf) for _, _, leaf in lm_leaves(tree))
+
+
 def _key(path) -> str:
     return "/".join(path)
 
@@ -48,6 +60,8 @@ def _key(path) -> str:
 def _host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as (the numpy array npz stores, its dtype's name)."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         enc = _VIEW_ENCODE.get(t.dtype)
         if enc is not None:
@@ -104,15 +118,28 @@ def _write(ckpt_dir: str, step: int, flat, extra, keep: int) -> str:
 
 def save(ckpt_dir: str, step: int, tree, *, extra: Optional[dict] = None,
          keep: int = 3) -> str:
-    return _write(ckpt_dir, step, _flatten(tree), extra, keep)
+    """Write ``tree`` at ``step``; a sharded tree is gathered on every rank,
+    written by rank 0, and the ranks wait for the write."""
+    sharded = _sharded(tree)
+    flat = _flatten(tree)
+    out = str(Path(ckpt_dir) / f"step_{step:08d}")
+    if not sharded or torch.distributed.get_rank() == 0:
+        out = _write(ckpt_dir, step, flat, extra, keep)
+    if sharded:
+        torch.distributed.barrier()
+    return out
 
 
 def save_async(ckpt_dir: str, step: int, tree, *, extra=None,
                keep: int = 3) -> threading.Thread:
-    """Snapshot to host memory synchronously, write in a background thread."""
+    """Snapshot to host memory synchronously, write in a background thread
+    (for a sharded tree, on rank 0 only)."""
+    sharded = _sharded(tree)
     flat = _flatten(tree)
-    t = threading.Thread(target=_write, args=(ckpt_dir, step, flat, extra,
-                                              keep), daemon=True)
+    writes = not sharded or torch.distributed.get_rank() == 0
+    t = threading.Thread(target=_write if writes else (lambda *a: None),
+                         args=(ckpt_dir, step, flat, extra, keep),
+                         daemon=True)
     t.start()
     return t
 
@@ -152,13 +179,18 @@ def _same_device(have: torch.device, want) -> bool:
 
 
 def restore(ckpt_dir: str, template, step: Optional[int] = None,
-            device=None) -> Tuple[Any, dict]:
+            device=None, shardings=None) -> Tuple[Any, dict]:
     """Restore into the structure of ``template`` (the port's tree: tensors
     give each leaf's dtype and device; numpy arrays and numbers come back
     as numpy).  A tensor leaf on ``device`` (default: where the template's
     leaf lies) is filled in place and returned, so a state that fills the
     card is not held twice; a leaf the template has on another device
-    comes back as a new tensor on ``device``.  Returns (tree, manifest)."""
+    comes back as a new tensor on ``device``.  ``shardings`` (a tree of
+    ``sharding.specs.NamedSharding`` in the reference's layout, as
+    ``to_shardings`` makes it) re-shards on load: each leaf comes back a
+    ``DTensor`` of its sharding, each rank holding its own shard — the
+    elastic-resize path, onto a smaller or larger mesh.  Returns (tree,
+    manifest)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -194,6 +226,12 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
                              f"{tuple(arr.shape)} vs {tuple(want)}")
         if layer is not None:
             arr = arr[layer]
+        if shardings is not None:
+            where = device if device is not None else (
+                leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
+            dtype = leaf.dtype if isinstance(leaf, torch.Tensor) else None
+            return spec_at(shardings, path, layer).place(
+                arr.to(device=where, dtype=dtype))
         if not isinstance(leaf, torch.Tensor):
             return arr.numpy().astype(np.asarray(leaf).dtype)
         if _same_device(leaf.device, device):

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import refuse_dtensor
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_torch, flash_attention_torch)
 
@@ -172,6 +173,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     version.  When grad is enabled and an input requires grad, the call
     goes through ``FlashAttentionFn``, whose backward is the backward
     kernel (CUDA) or its plain version (CPU)."""
+    refuse_dtensor("flash_attention", q, k, v)
     _check(q, k, v, window, prefix_len)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
@@ -251,6 +253,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     The gradients are of the caller's own head width, scaled by
     1/sqrt(D)."""
     global _bwd_launches
+    refuse_dtensor("flash_attention_bwd", q, k, v, o, do, lse)
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     do = do.contiguous()

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import refuse_dtensor
 from repro_torch.kernels.mamba2_ssd.ref import ssd_bwd_torch, ssd_torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -168,6 +169,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     the plain version.  When grad is enabled and an input requires grad,
     the call goes through ``SSDFn``, whose backward is the backward kernel
     (CUDA) or its plain version (CPU)."""
+    refuse_dtensor("ssd", x, dt, A_log, B, C, D)
     _check(x, dt, A_log, B, C, D)
     if torch.is_grad_enabled() and any(t.requires_grad for t in
                                        (x, dt, A_log, B, C, D)):

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import refuse_dtensor
 from repro_torch.kernels.rwkv6.ref import wkv6_bwd_torch, wkv6_torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -186,6 +187,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of ``CHUNK``.  When grad is enabled and an input requires grad, the
     call goes through ``WKV6Fn``, whose backward is the backward kernel
     (CUDA) or its plain version (CPU)."""
+    refuse_dtensor("wkv6", r, k, v, log_w, u)
     _check(r, k, v, log_w, u)
     if torch.is_grad_enabled() and any(t.requires_grad for t in
                                        (r, k, v, log_w, u)):

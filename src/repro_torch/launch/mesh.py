@@ -20,11 +20,20 @@ through ``--xla_force_host_platform_device_count`` in ``XLA_FLAGS``.
 Nothing here creates a CUDA context at import or when a CPU mesh is made;
 ``make_host_mesh()`` counts the cards with ``torch.cuda.device_count()``,
 which does not initialise CUDA either.
+
+``make_mesh(shape, axes)`` is the sharded steps' mesh: a named ``Mesh`` of
+axis names and sizes, the counterpart of ``jax.make_mesh`` (and of
+``jax.sharding.AbstractMesh`` where no device is needed).  The spec tables
+(``sharding/specs.py``) read only its names and sizes; its
+``device_mesh()`` is a ``torch.distributed`` ``DeviceMesh`` over the default
+process group, one rank a device, which the sharded steps distribute over.
 """
 from __future__ import annotations
 
+import math
 import os
-from typing import List, Mapping, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 #: how many CPU devices ``make_host_mesh("cpu")`` gives (default 1)
 HOST_DEVICES_ENV = "REPRO_TORCH_HOST_DEVICES"
@@ -82,5 +91,68 @@ def make_host_mesh(device_type: str = "cuda",
     return [torch.device("cuda", i) for i in range(cards)]
 
 
-__all__ = ("HOST_DEVICES_ENV", "forced_device_env", "forced_host_devices",
-           "make_host_mesh")
+@dataclass(frozen=True)
+class Mesh:
+    """A named device mesh: ``axis_names`` and their ``axis_sizes``, ranks
+    laid out row-major over them (the last axis fastest), as
+    ``jax.make_mesh`` lays out devices.  ``shape`` maps each name to its
+    size, as a jax mesh's does."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    _meshes: Dict[str, Any] = field(default_factory=dict, compare=False,
+                                    repr=False)
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"axes {self.axis_names} and shape "
+                             f"{self.axis_sizes} differ in length")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"repeated axis name in {self.axis_names}")
+        for n in self.axis_sizes:
+            _check(n)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    def device_mesh(self, device_type: Optional[str] = None):
+        """The ``DeviceMesh`` of this mesh over the default process group,
+        whose world size must equal ``size`` (rank r is device r of the
+        row-major layout).  ``device_type`` defaults to ``"cuda"`` where the
+        process sees a card, else ``"cpu"``; one ``DeviceMesh`` is built
+        per type and kept."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if device_type is None:
+            device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        if device_type not in self._meshes:
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    f"a {self.size}-device mesh needs a process group of "
+                    f"{self.size} ranks (torch.distributed."
+                    f"init_process_group); none is initialized")
+            world = dist.get_world_size()
+            if world != self.size:
+                raise RuntimeError(
+                    f"mesh {self.shape} has {self.size} devices, the "
+                    f"process group {world} ranks")
+            ranks = torch.arange(self.size).reshape(self.axis_sizes)
+            self._meshes[device_type] = DeviceMesh(
+                device_type, ranks, mesh_dim_names=self.axis_names)
+        return self._meshes[device_type]
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """The named mesh of ``shape`` over ``axes`` (``jax.make_mesh``'s
+    counterpart); building it needs no process group."""
+    return Mesh(tuple(str(a) for a in axes), tuple(int(n) for n in shape))
+
+
+__all__ = ("HOST_DEVICES_ENV", "Mesh", "forced_device_env",
+           "forced_host_devices", "make_host_mesh", "make_mesh")

@@ -14,10 +14,17 @@ reference's layout -> the fault-tolerant supervisor (straggler detection,
 restart from the latest checkpoint).  The same flags as the reference's,
 plus ``--device`` (default ``cuda``: the card; ``cpu`` trains the smoke
 configs here).  Parameters come from ``init_params`` on a
-``torch.Generator`` seeded with ``--seed``.  One device trains unsharded;
-a ``--mesh`` of more devices is refused until the port has sharding
-(ROADMAP Queue A, A10).  A model whose parameters, gradients and AdamW
-state do not fit the card is refused before any weight is made.
+``torch.Generator`` seeded with ``--seed``.  One device trains unsharded.
+``--mesh d,m`` trains on a (data=d, model=m) mesh of d·m ranks, one
+process a rank, through ``make_sharded_train_step``: the process group
+comes from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``; gloo on the CPU, nccl on cards, card
+``LOCAL_RANK`` a rank) or from a caller that initialized it (a test's
+spawn); with no group of d·m ranks the mesh is refused, naming the count.
+Every rank draws the same parameters and the same global batch and keeps
+its own shards; rank 0 writes the checkpoints and the log.  A model whose
+parameters, gradients and AdamW state do not fit the card is refused
+before any weight is made.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import time
 
 import numpy as np
@@ -33,12 +41,12 @@ import torch
 from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.data.pipeline import DataConfig, host_batch
 from repro_torch.interop import lm_leaves
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.common import init_params
 from repro_torch.runtime.fault_tolerance import FaultConfig, Supervisor
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.train_step import (make_sharded_train_step,
-                                          make_train_state)
+                                          make_train_state, train_step_fn)
 
 
 def _fits(cfg, device, compress: bool) -> None:
@@ -53,6 +61,21 @@ def _fits(cfg, device, compress: bool) -> None:
         raise SystemExit(f"{cfg.name}: {need / 1e9:.1f} GB of parameters, "
                          f"gradients and optimizer state do not fit the "
                          f"card's {have / 1e9:.1f} GB; try --smoke")
+
+
+def _join_group(n: int, device) -> int:
+    """This process's rank in a process group of ``n`` ranks: the group a
+    caller initialized, else one from ``torchrun``'s environment; refuses
+    (``SystemExit``) any other rank count."""
+    import torch.distributed as dist
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise SystemExit(f"--mesh of {n} devices needs a process group of "
+                         f"{n} ranks (torchrun --nproc-per-node {n}); this "
+                         f"process has {world}")
+    return dist.get_rank()
 
 
 def main(argv=None) -> dict:
@@ -91,17 +114,28 @@ def main(argv=None) -> dict:
     opt = OptConfig(lr=args.lr, total_steps=args.steps,
                     warmup_steps=max(1, args.steps // 20))
     device = torch.device(args.device)
-    mesh = [device]
+    mesh, rank = None, 0
     if args.mesh:
-        n = math.prod(int(x) for x in args.mesh.split(","))
-        if n > 1:
-            mesh = (make_host_mesh("cpu", n) if device.type == "cpu"
-                    else make_host_mesh("cuda")[:n])
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        if len(shape) != 2:
+            raise SystemExit(f"--mesh takes data,model; got {args.mesh!r}")
+        if math.prod(shape) > 1:
+            rank = _join_group(math.prod(shape), device)
+            mesh = make_mesh(shape, ("data", "model"))
+            if device.type == "cuda":
+                device = torch.device("cuda", int(os.environ.get(
+                    "LOCAL_RANK", rank)))
+                torch.cuda.set_device(device)
     _fits(cfg, device, args.compress)
     dc = DataConfig(seed=args.seed, global_batch=args.batch,
                     seq_len=args.seq)
-    step_fn, _ = make_sharded_train_step(cfg, opt, mesh, args.batch,
-                                         args.microbatches, args.compress)
+    if args.batch % max(1, args.microbatches):
+        raise ValueError(f"batch {args.batch} does not split into "
+                         f"{args.microbatches} microbatches")
+    step_fn = (train_step_fn(cfg, opt, args.microbatches, args.compress)
+               if mesh is None else make_sharded_train_step(
+                   cfg, opt, mesh, args.batch, args.microbatches,
+                   args.compress)[0])
 
     def make_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -124,7 +158,7 @@ def main(argv=None) -> dict:
         loss = float(metrics["total_loss"])
         losses.append(loss)
         step_s.append(time.perf_counter() - t0)
-        if step_idx % args.log_every == 0:
+        if step_idx % args.log_every == 0 and rank == 0:
             print(f"step {step_idx:5d}  loss {loss:8.4f}  "
                   f"gnorm {float(metrics['grad_norm']):7.3f}  "
                   f"lr {float(metrics['lr']):.2e}", flush=True)
@@ -145,8 +179,9 @@ def main(argv=None) -> dict:
 
     first = float(np.mean(losses[:5])) if losses else float("nan")
     last = float(np.mean(losses[-5:])) if losses else float("nan")
-    print(f"\narch={cfg.name} params={n_params:,} steps={args.steps} "
-          f"wall={wall:.1f}s  loss {first:.3f} -> {last:.3f}")
+    if rank == 0:
+        print(f"\narch={cfg.name} params={n_params:,} steps={args.steps} "
+              f"wall={wall:.1f}s  loss {first:.3f} -> {last:.3f}")
     assert math.isfinite(last), "training diverged"
     return {"first_loss": first, "last_loss": last, "params": n_params,
             "wall_s": wall, "losses": losses, "step_s": step_s,

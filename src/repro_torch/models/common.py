@@ -85,8 +85,9 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     mlp_act: str = "silu"            # silu | gelu
     tie_embeddings: bool = True
-    # distribution fields of the reference, kept so that a configuration
-    # reads the same in both packages; one card has no sharding (ROADMAP A10)
+    # distribution (sharding/specs.py): tp2d = FSDP(data) x TP(model), fsdp
+    # = ZeRO-3 over (data, model); pinned grad_reduce lays gradients out as
+    # their parameters before the optimizer
     shard_strategy: str = "tp2d"
     grad_reduce: str = "auto"
     # KV block size of the plain blockwise attention (0 = one full block)

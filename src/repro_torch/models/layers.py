@@ -5,18 +5,27 @@ PyTorch).
 ``blockwise_attention`` is the plain version: an online softmax over KV
 blocks, as in the reference.  ``attention_block`` sends prefill attention on
 a CUDA tensor to the hand-written flash-attention kernel
-(``kernels/flash_attention``) and everything on the CPU to the plain
-version; the choice follows the tensor's device, never a failure.
+(``kernels/flash_attention``) and on a CPU or ``meta`` tensor to the plain
+version; the choice follows the tensor's device type, never a failure.  On
+the ``DTensor``s of a sharded step the attention runs per device on its
+local heads (``local_map``, placements from the ``q_heads`` / ``kv_heads``
+rules), so each device launches the kernel once on its shard; q, k and v
+are constrained to whole heads where the config asks for it
+(``attn_head_shard="heads"``), at the reference's places.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.kernel_cost import as_kernel, flash_cost
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.sharding.ctx import (constrain, is_dtensor, local_placements,
+                                      per_device, shard_offset)
 
 NEG_INF = -1e30
 #: "window" that never masks anything
@@ -224,30 +233,119 @@ def attention_block(x, p, cfg, positions, *, causal=True,
     ``blockwise_attention``."""
     B, S, d = x.shape
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, D)
-    k = (x @ p["wk"]).reshape(B, S, KV, D)
-    v = (x @ p["wv"]).reshape(B, S, KV, D)
+    q = split_heads(x @ p["wq"], H, D)
+    k = split_heads(x @ p["wk"], KV, D)
+    v = split_heads(x @ p["wv"], KV, D)
+    if cfg.attn_head_shard == "heads":
+        q = constrain(q, "q_heads")
+        k = constrain(k, "kv_heads")
+        v = constrain(v, "kv_heads")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if x.is_cuda:
-        o = flash_attention(q, k, v, causal=causal,
-                            window=0 if window >= GLOBAL_WINDOW else window,
-                            prefix_len=prefix_len or 0)
+    mask = dict(causal=causal, window=window, prefix_len=prefix_len,
+                block_kv=block_kv)
+    if is_dtensor(q):
+        o = _sharded_attention(q, k, v, **mask)
     else:
-        o = blockwise_attention(q, k, v, causal=causal, window=window,
-                                prefix_len=prefix_len, block_kv=block_kv)
+        o = _attention(q, k, v, **mask)
     return o.reshape(B, S, H * D) @ p["wo"]
+
+
+def whole_over(t, dim: int, n: int):
+    """``t``; a ``DTensor`` whose dim ``dim`` is split over more devices
+    than divide ``n`` gathered along it first, so that a reshape of that
+    dim into ``n`` parts (heads) never cuts a part across devices."""
+    placements = getattr(t, "placements", None)
+    if placements is None:
+        return t
+    mesh = t.device_mesh
+    split = math.prod(mesh.size(m) for m, pl in enumerate(placements)
+                      if pl.is_shard(dim))
+    if n % split == 0:
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(mesh, [Replicate() if pl.is_shard(dim) else pl
+                                 for pl in placements])
+
+
+def split_heads(t, n: int, D: int):
+    """(..., n D) -> (..., n, D), whole heads on each device
+    (``whole_over``: with a head count the model axis does not divide, the
+    reference's kv heads replicate in its whole-head mode too)."""
+    t = whole_over(t, t.ndim - 1, n)
+    return t.reshape(*t.shape[:-1], n, D)
+
+
+def _attention(q, k, v, *, causal, window, prefix_len, block_kv):
+    """Attention on one device's tensors: the flash kernel on a CUDA
+    tensor, ``blockwise_attention`` on a CPU or ``meta`` one (on ``meta``
+    costed as the flash kernel's launch, ``kernel_cost.as_kernel``)."""
+    kernel_window = 0 if window >= GLOBAL_WINDOW else window
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal=causal, window=kernel_window,
+                               prefix_len=prefix_len or 0)
+
+    def plain(q, k, v):
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len, block_kv=block_kv)
+    if q.device.type == "cpu":
+        return plain(q, k, v)
+    if q.device.type == "meta":
+        return as_kernel("flash_attention", plain, functools.partial(
+            flash_cost, causal=causal, window=kernel_window,
+            prefix_len=prefix_len or 0), q, k, v)
+    raise ValueError(f"attention runs on cuda, cpu or meta, not {q.device}")
+
+
+def _sharded_attention(q, k, v, **mask):
+    """``_attention`` on each device's local heads of DTensors q, k, v:
+    batch (when it shards) and q heads as the ``q_heads`` rule lays them
+    out (all heads on every device of the model axis when it does not
+    divide them, a drop ``local_placements`` says); k and v heads shard
+    with them where the model axis divides both head counts, else k and v
+    replicate over it and each device picks the kv heads its q heads read
+    (GQA's h // G)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    qp = list(local_placements("q_heads", q.shape))
+    split = math.prod(mesh.size(m) for m, pl in enumerate(qp)
+                      if pl.is_shard(2))
+    whole = [Replicate() if pl.is_shard(2) else pl for pl in qp]
+    even = KV % split == 0
+    kvp = qp if even else whole
+    h0 = 0 if even else shard_offset(H, mesh, qp, 2)
+    G = H // KV
+
+    def local(ql, kl, vl):
+        if not even:
+            heads = (h0 + torch.arange(ql.shape[2])) // G
+            kv_idx = torch.unique_consecutive(heads)
+            if heads.numel() % kv_idx.numel() == 0 and torch.equal(
+                    heads, kv_idx.repeat_interleave(
+                        heads.numel() // kv_idx.numel())):
+                heads = kv_idx
+            kl = kl[:, :, heads.to(kl.device)].contiguous()
+            vl = vl[:, :, heads.to(vl.device)].contiguous()
+        return _attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                          **mask)
+    return per_device(local, list(qp), (qp, kvp, kvp), mesh)(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=GLOBAL_WINDOW):
     """Single-token decode over a KV cache.
 
     q: (B, 1, H, D); caches: (B, Smax, KV, D); ``cache_len``: current length
-    (the new token is already written at cache_len-1).
+    (the new token is already written at cache_len-1).  On DTensors it runs
+    per device (``_sharded_decode_attention``).
     """
+    if is_dtensor(q):
+        return _sharded_decode_attention(q, k_cache, v_cache, cache_len,
+                                         window)
     B, _, H, D = q.shape
     _, Smax, KV, _ = k_cache.shape
     G = H // KV
@@ -262,4 +360,61 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=GLOBAL_WINDOW):
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _sharded_decode_attention(q, k_cache, v_cache, cache_len: int, window):
+    """``decode_attention`` on DTensors, per device: each device attends
+    over its own slice of the cache — its batch rows, its kv heads where
+    the model axis divides them (with their q heads), its positions where
+    the cache's sequence is split (``cache_specs``' sequence-parallel
+    layout) — and returns its row maxima, sums and unnormalised outputs,
+    which are combined across the sequence's slices as flash-decoding
+    does (rescaled to the global maximum, summed, divided).  With the
+    sequence whole on every device, each runs ``decode_attention``'s own
+    arithmetic on its rows and heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    B, _, H, D = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    cache_pl = [pl if pl.is_shard() and pl.dim in (0, 1, 2) else Replicate()
+                for pl in k_cache.placements]
+    cache_pl = [Replicate() if pl.is_shard(2) and KV % mesh.size(m)
+                else pl for m, pl in enumerate(cache_pl)]
+    q_pl = [pl if pl.is_shard(0) or pl.is_shard(2) else Replicate()
+            for pl in cache_pl]
+    # the outputs are (split, B, KV, G[, D]): the cache's positions (its
+    # dim 1) become the split axis, its batch (0) dim 1, its kv heads (2)
+    # dim 2
+    at = {0: 1, 1: 0, 2: 2}
+    out_pl = [Shard(at[pl.dim]) if pl.is_shard() else Replicate()
+              for pl in cache_pl]
+    clen = int(cache_len)
+    if not any(pl.is_shard(1) for pl in cache_pl):
+        # every device holds whole rows: the unsharded arithmetic, as it is
+        return per_device(
+            lambda ql, kl, vl: decode_attention(ql, kl, vl, clen,
+                                                window=window),
+            q_pl, (q_pl, cache_pl, cache_pl), mesh)(q, k_cache, v_cache)
+    s0 = shard_offset(Smax, mesh, cache_pl, 1)
+
+    def local(ql, kl, vl):
+        b, kv = ql.shape[0], kl.shape[2]
+        qf = (ql.float() / math.sqrt(D)).reshape(b, kv, -1, D)
+        s = torch.einsum("bkgd,bskd->bkgs", qf, kl.float())
+        pos = s0 + torch.arange(kl.shape[1], device=ql.device)
+        valid = (pos < clen) & (pos >= clen - window)
+        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        o = torch.einsum("bkgs,bskd->bkgd", p, vl.float())
+        return m[None], p.sum(dim=-1)[None], o[None]
+    m, l, o = per_device(local, (out_pl, out_pl, out_pl),
+                         (q_pl, cache_pl, cache_pl), mesh)(
+                             q, k_cache, v_cache)
+    top = m.amax(dim=0)
+    w = torch.exp(m - top[None])
+    o = (o * w[..., None]).sum(dim=0) / (l * w).sum(dim=0)[..., None]
     return o.reshape(B, 1, H, D).to(q.dtype)

@@ -29,6 +29,11 @@ pass, as the reference's ``jax.checkpoint`` of the scanned block does.
 Serving, whose parameters require no grad, runs the layers as they are.
 The decode cache is updated in place, where the reference donates it to
 ``jit``.
+
+The functions are sharding-agnostic: a sharded step (``serve/serve_step``,
+``train/train_step``) runs them on ``DTensor``s under its activation rules,
+and ``sharding.ctx.constrain`` pins the hidden states and logits at the
+reference's places (a plain tensor passes through unchanged).
 """
 from __future__ import annotations
 
@@ -39,10 +44,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ModelConfig, _leaves, check_family
 from repro_torch.models.layers import (GLOBAL_WINDOW, attention_block,
-                                       decode_attention, mlp, rms_norm, rope)
+                                       decode_attention, mlp, rms_norm, rope,
+                                       split_heads)
 from repro_torch.models.mamba2 import mamba2_layer
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rwkv6 import rwkv6_decode_step, rwkv6_layer
+from repro_torch.sharding.ctx import (activation_sharding, constrain,
+                                      current_rules, like, per_device,
+                                      shard_offset)
 
 
 def layer_windows(cfg: ModelConfig) -> List[int]:
@@ -62,18 +71,59 @@ def _remat(params):
     and a parameter requires grad, else directly."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in _leaves(params)):
-        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+        # the backward's recompute may run on another thread (the card's
+        # autograd thread), where the caller's activation rules are unset
+        rules = current_rules()
+
+        def under_rules(fn, *args):
+            with activation_sharding(rules):
+                return fn(*args)
+        return lambda fn, *args: checkpoint(under_rules, fn, *args,
+                                            use_reentrant=False)
     return lambda fn, *args: fn(*args)
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens].to(cfg.dtype) * (cfg.d_model ** 0.5)
+    h = _lookup(params["embed"], tokens).to(cfg.dtype) * (cfg.d_model ** 0.5)
+    return constrain(h, "hidden")
+
+
+def _lookup(embed, tokens):
+    """``embed[tokens]``.  On DTensors per device (``local_map``): the
+    table gathered along its model dim (an FSDP gather), its vocabulary
+    kept split where it is, each device picking the rows of its tokens
+    that fall in its slice (zero elsewhere) and the slices summed (a
+    vocab-parallel lookup); the table's gradient is a partial sum over the
+    devices that split the tokens."""
+    placements = getattr(embed, "placements", None)
+    if placements is None:
+        return embed[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = embed.device_mesh
+    vocab = [pl.is_shard(0) and not tp.is_shard()
+             for pl, tp in zip(placements, tokens.placements)]
+    tok_pl = [Replicate() if v else tp
+              for v, tp in zip(vocab, tokens.placements)]
+    emb_pl = [Shard(0) if v else Replicate() for v in vocab]
+    out_pl = [Partial() if v else tp for v, tp in zip(vocab, tok_pl)]
+    v0 = shard_offset(embed.shape[0], mesh, emb_pl, 0)
+    split = any(vocab)
+
+    def local(emb, tok):
+        if not split:
+            return emb[tok]
+        t = tok.long() - v0
+        inside = (t >= 0) & (t < emb.shape[0])
+        rows = emb[t.clamp(0, emb.shape[0] - 1)]
+        return torch.where(inside[..., None], rows, 0)
+    return per_device(local, out_pl, (emb_pl, tok_pl), mesh)(embed, tokens)
 
 
 def _logits(params, cfg, h):
     h = rms_norm(h, params["final_norm"])
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return h @ head.to(h.dtype)
+    return constrain(h @ head.to(h.dtype), "logits")
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +162,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, features=None,
         # the norm reads the residual sum unrounded, as the reference's
         # compiled scan body does (XLA drops that bf16 rounding)
         f, a = _ffn(rms_norm(hm, lp["norm2"]).to(h.dtype), lp, cfg)
-        return hm.to(h.dtype) + f, aux + a
+        return constrain(hm.to(h.dtype) + f, "hidden"), aux + a
 
     run = _remat(params)
     for lp, win in zip(params["layers"], layer_windows(cfg)):
@@ -125,7 +175,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, features=None,
 
 def _forward_hubert(params, cfg, features, feat_mask, block_kv: int):
     """Encoder over (masked) frame features; predicts codebook targets."""
-    h = features.to(cfg.dtype) @ params["frontend_proj"]
+    h = constrain(features.to(cfg.dtype) @ params["frontend_proj"], "hidden")
     if feat_mask is not None:
         h = torch.where(feat_mask[..., None],
                         params["mask_embed"].to(cfg.dtype)[None, None, :], h)
@@ -138,7 +188,7 @@ def _forward_hubert(params, cfg, features, feat_mask, block_kv: int):
             rms_norm(h, lp["norm1"]), lp["attn"], cfg, positions,
             causal=False, window=GLOBAL_WINDOW, block_kv=block_kv).float()
         f = mlp(rms_norm(hm, lp["norm2"]).to(h.dtype), lp["mlp"], cfg.mlp_act)
-        return hm.to(h.dtype) + f
+        return constrain(hm.to(h.dtype) + f, "hidden")
 
     run = _remat(params)
     for lp in params["layers"]:
@@ -162,7 +212,7 @@ def _forward_rwkv6(params, cfg, tokens):
                         device=h.device)
 
     def block(h, lp):
-        return rwkv6_layer(h, zeros, zeros, lp, cfg)[0]
+        return constrain(rwkv6_layer(h, zeros, zeros, lp, cfg)[0], "hidden")
 
     run = _remat(params)
     for lp in params["layers"]:
@@ -174,6 +224,30 @@ def _forward_rwkv6(params, cfg, tokens):
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
+
+def _pick(logits, targets):
+    """``logits[..., targets]`` at every position.  On DTensors whose
+    vocabulary is split over devices each device picks the targets that
+    fall in its slice (zero elsewhere) and the picks are summed across
+    the slices (a vocab-parallel gather), so no device holds the whole
+    vocabulary."""
+    placements = getattr(logits, "placements", None)
+    if placements is None:
+        return logits.gather(-1, targets[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+    last, mesh = logits.ndim - 1, logits.device_mesh
+    v0 = shard_offset(logits.shape[-1], mesh, placements, last)
+
+    def local(lg, tg):
+        t = tg.long() - v0
+        inside = (t >= 0) & (t < lg.shape[-1])
+        picked = lg.gather(-1, t.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(inside, picked[..., 0], 0.0)
+    out = [Partial() if p.is_shard(last) else p for p in placements]
+    rows = [Replicate() if p.is_shard(last) else p for p in placements]
+    return per_device(local, out, (list(placements), rows), mesh)(
+        logits, targets)
+
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any],
             aux_weight: float = 0.01, z_weight: float = 1e-4):
@@ -196,7 +270,7 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any],
                               img_embeds=batch.get("img_embeds"))
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, targets[..., None])[..., 0]
+    ll = _pick(logits, targets)
     nll = (logz - ll) * mask
     denom = torch.clamp_min(mask.sum(), 1)
     loss = nll.sum() / denom
@@ -220,7 +294,7 @@ def _forward_zamba2(params, cfg, tokens, block_kv: int):
     sp = params["shared"]
 
     def layer(h, lp):
-        return mamba2_layer(h, lp, cfg)[0]
+        return constrain(mamba2_layer(h, lp, cfg)[0], "hidden")
 
     run = _remat(params)
     for g in range(G):
@@ -232,7 +306,7 @@ def _forward_zamba2(params, cfg, tokens, block_kv: int):
             rms_norm(h, sp["norm1"]), sp["attn"], cfg, positions,
             causal=True, window=GLOBAL_WINDOW, block_kv=block_kv).float()
         f = mlp(rms_norm(hm, sp["norm2"]).to(h.dtype), sp["mlp"], cfg.mlp_act)
-        h = hm.to(h.dtype) + f
+        h = constrain(hm.to(h.dtype) + f, "hidden")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, cfg, h), aux
 
@@ -282,6 +356,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def _write(dst, src) -> None:
+    """``dst.copy_(src)`` in place; a sharded ``src`` is first laid out as
+    the cache's ``dst`` is."""
+    dst.copy_(like(src, dst))
+
+
+def _write_position(kc, pos, k) -> None:
+    """``kc[:, pos] = k[:, 0]`` in place, for a cache (B, Smax, KV, D) and a
+    step's keys or values (B, 1, KV, D).  A sharded cache whose sequence
+    axis is split (the sequence-parallel cache of ``cache_specs``) is
+    written on the device that holds ``pos``, in its local shard."""
+    placements = getattr(kc, "placements", None)
+    if placements is None:
+        kc[:, pos] = k[:, 0]
+        return
+    from torch.distributed.tensor import Replicate
+    whole_seq = [Replicate() if p.is_shard(1) else p for p in placements]
+    if whole_seq == list(placements):
+        kc[:, pos].copy_(like(k[:, 0], kc[:, pos]))
+        return
+    k = k.redistribute(kc.device_mesh, whole_seq).to_local()
+    local = kc.to_local()
+    start = shard_offset(kc.shape[1], kc.device_mesh, placements, 1)
+    if start <= pos < start + local.shape[1]:
+        local[:, pos - start] = k[:, 0]
+
+
 def _attend(h, p, cfg, cache, i, positions, window):
     """One decode step of attention over KV cache slot ``i``: projections,
     qk-norm, RoPE at ``positions`` (a (1, 1) tensor holding the step's
@@ -290,17 +391,17 @@ def _attend(h, p, cfg, cache, i, positions, window):
     B = h.shape[0]
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.hd
     pos = cache["len"]
-    q = (h @ p["wq"]).reshape(B, 1, H, D)
-    k = (h @ p["wk"]).reshape(B, 1, KV, D)
-    v = (h @ p["wv"]).reshape(B, 1, KV, D)
+    q = split_heads(h @ p["wq"], H, D)
+    k = split_heads(h @ p["wk"], KV, D)
+    v = split_heads(h @ p["wv"], KV, D)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     kc, vc = cache["k"][i], cache["v"][i]
-    kc[:, pos] = k[:, 0]
-    vc[:, pos] = v[:, 0]
+    _write_position(kc, pos, k)
+    _write_position(vc, pos, v)
     o = decode_attention(q, kc, vc, pos + 1, window=window)
     return o.reshape(B, 1, H * D) @ p["wo"]
 
@@ -342,9 +443,9 @@ def _decode_rwkv6(params, cfg, cache, h):
     for i, lp in enumerate(params["layers"]):
         h, tmix, cmix, wkv = rwkv6_decode_step(
             h, cache["tmix"][i], cache["cmix"][i], cache["wkv"][i], lp, cfg)
-        cache["tmix"][i].copy_(tmix)
-        cache["cmix"][i].copy_(cmix)
-        cache["wkv"][i].copy_(wkv)
+        _write(cache["tmix"][i], tmix)
+        _write(cache["cmix"][i], cmix)
+        _write(cache["wkv"][i], wkv)
     return h[:, None, :]
 
 
@@ -359,8 +460,8 @@ def _decode_zamba2(params, cfg, cache, h, positions):
                                         conv_state=cache["conv"][i],
                                         ssm_state=cache["ssm"][i],
                                         decode=True)
-            cache["conv"][i].copy_(conv)
-            cache["ssm"][i].copy_(ssm)
+            _write(cache["conv"][i], conv)
+            _write(cache["ssm"][i], ssm)
         h = h + _attend(rms_norm(h, sp["norm1"]), sp["attn"], cfg, cache, g,
                         positions, GLOBAL_WINDOW)
         h = h + mlp(rms_norm(h, sp["norm2"]), sp["mlp"], cfg.mlp_act)

@@ -11,7 +11,15 @@ weights.  Every slot lies in [0, E C) and at most one kept token lands in
 each, while a dropped token adds zeros to its expert's last slot, so the
 scatter is exact in any order.  The reference computes all of it outside
 any Pallas kernel; here it is plain tensor code, on the card as on the CPU.
-On one card the reference's sharding constraints are the identity.
+
+In a sharded step (``DTensor``s under activation rules) the dispatch runs
+per device through ``local_map``, in the expert-parallel layout of the
+rules ``moe_tokens_g`` and ``expert_buf_g`` (``expert_buf`` ungrouped):
+each device routes its data shard's groups over every expert, fills and
+runs only the buffers of its own experts (experts over the model axis), and
+the devices' partial outputs are summed across that axis.  The reference's
+constraints on the expert buffers sit at its places; inside the local
+dispatch they see plain tensors and pass them through.
 """
 from __future__ import annotations
 
@@ -22,6 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import mlp, silu
+from repro_torch.sharding.ctx import (constrain, current_rules, is_dtensor,
+                                      note_drop, per_device)
+from repro_torch.sharding.specs import P
 
 
 def router_topk(logits, k: int, renorm: bool = True):
@@ -85,21 +96,27 @@ def route(xg, router_w, top_k: int, C: int) -> Routing:
     return Routing(logits, weights, idx, keep, slot, C)
 
 
-def _dispatch(xg, w_gate, w_up, w_down, router_w, *, top_k: int, C: int,
-              act: str):
-    """Capacity-based MoE over token groups xg (G, Tl, d), each group with
-    its own prefix sum and buffers.  Returns (out (G, Tl, d), aux)."""
+def _experts(xg, r: Routing, w_gate, w_up, w_down, *, e0: int, act: str,
+             grouped: bool):
+    """The routed experts e0 .. e0 + El - 1 (``w_*`` hold El experts) over
+    token groups xg (G, Tl, d): scatter the kept (token, choice) pairs
+    routed to them into (G, El, C, d) buffers, run the experts as one
+    batched product, gather back with the routing weights.  Returns
+    (G, Tl, d), the sum over those experts' choices."""
     G, Tl, d = xg.shape
-    E = w_gate.shape[0]
-    r = route(xg, router_w, top_k, C)
+    El, C, top_k = w_gate.shape[0], r.C, r.idx.shape[-1]
+    mine = r.keep & (r.idx >= e0) & (r.idx < e0 + El)
+    buf_kind = "expert_buf_g" if grouped else "expert_buf"
+    hidden_kind = "expert_hidden_g" if grouped else "expert_hidden"
 
     # scatter tokens into expert buffers (dropped tokens contribute nothing)
-    upd = torch.where(r.keep[..., None], xg[:, :, None, :],
+    upd = torch.where(mine[..., None], xg[:, :, None, :],
                       torch.zeros((), dtype=xg.dtype, device=xg.device))
-    rows = r.slot + E * C * torch.arange(G, device=xg.device)[:, None, None]
-    buf = torch.zeros((G * E * C, d), dtype=xg.dtype, device=xg.device)
+    slot = torch.where(mine, r.slot - e0 * C, 0)
+    rows = slot + El * C * torch.arange(G, device=xg.device)[:, None, None]
+    buf = torch.zeros((G * El * C, d), dtype=xg.dtype, device=xg.device)
     buf.index_add_(0, rows.reshape(-1), upd.reshape(-1, d))
-    buf = buf.reshape(G, E, C, d)
+    buf = constrain(buf.reshape(G, El, C, d), buf_kind)
 
     # batched expert MLP
     if act == "silu":
@@ -108,13 +125,102 @@ def _dispatch(xg, w_gate, w_up, w_down, router_w, *, top_k: int, C: int,
     else:
         h = F.gelu(torch.einsum("gecd,edf->gecf", buf, w_up),
                    approximate="tanh")
-    out_buf = torch.einsum("gecf,efd->gecd", h, w_down).reshape(G * E * C, d)
+    h = constrain(h, hidden_kind)
+    out_buf = constrain(torch.einsum("gecf,efd->gecd", h, w_down),
+                        buf_kind).reshape(G * El * C, d)
 
     # gather back with routing weights
     gathered = out_buf[rows.reshape(-1)].reshape(G, Tl, top_k, d)
-    wk = torch.where(r.keep, r.weights, 0.0).to(xg.dtype)
-    out = torch.einsum("gtk,gtkd->gtd", wk, gathered)
+    wk = torch.where(mine, r.weights, 0.0).to(xg.dtype)
+    return torch.einsum("gtk,gtkd->gtd", wk, gathered)
+
+
+def _dispatch(xg, w_gate, w_up, w_down, router_w, *, top_k: int, C: int,
+              act: str, grouped: bool = False):
+    """Capacity-based MoE over token groups xg (G, Tl, d), each group with
+    its own prefix sum and buffers.  Returns (out (G, Tl, d), aux)."""
+    if is_dtensor(xg):
+        return _sharded_dispatch(xg, w_gate, w_up, w_down, router_w,
+                                 top_k=top_k, C=C, act=act, grouped=grouped)
+    G, Tl, d = xg.shape
+    E = w_gate.shape[0]
+    r = route(xg, router_w, top_k, C)
+    out = _experts(xg, r, w_gate, w_up, w_down, e0=0, act=act,
+                   grouped=grouped)
     aux = aux_load_balance_loss(r.logits, r.idx.reshape(G * Tl, top_k), E)
+    return out, aux
+
+
+def _sharded_dispatch(xg, w_gate, w_up, w_down, router_w, *, top_k: int,
+                      C: int, act: str, grouped: bool):
+    """``_dispatch`` on DTensors, per device (``local_map``): groups over
+    the DP axes of ``moe_tokens_g`` where they divide them (else every
+    device routes every group), experts over the model axis of
+    ``expert_buf_g``'s expert entry where it divides them (each drop said,
+    ``note_drop``).  Each device
+    routes its groups over all experts, runs its own experts, and returns
+    its partial output (summed over the expert axis) with the gate sums and
+    top-1 counts over its tokens, from which the load-balance loss is
+    formed on the whole batch.  The devices of the expert axis route the
+    same tokens alike, so each returns its share (1 / their count) of those
+    statistics, summed over the axis: every output then holds only its
+    device's part, and the router's gradient through the loss is summed
+    once (``per_device``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rules = current_rules()
+    mesh = xg.device_mesh
+    names = mesh.mesh_dim_names
+    G, Tl, _ = xg.shape
+    E = w_gate.shape[0]
+
+    def axes(entry):
+        return (() if entry is None else (entry,) if isinstance(entry, str)
+                else tuple(entry))
+
+    def kept_axes(rule, entry, n, dim, shape):
+        """The axes of ``entry`` if they divide ``n``; else none, said."""
+        got = axes(entry)
+        if n % math.prod(mesh.size(names.index(a)) for a in got) == 0:
+            return got
+        spec = [None] * len(shape)
+        spec[dim] = entry
+        note_drop(rule, P(*spec), shape, P())
+        return ()
+    dp = kept_axes("moe_tokens_g", rules["moe_tokens_g"].spec[0], G, 0,
+                   xg.shape)
+    ep = kept_axes("expert_buf_g", rules["expert_buf_g"].spec[1], E, 1,
+                   (G, E, C, xg.shape[-1]))
+    x_pl = tuple(Shard(0) if a in dp else Replicate() for a in names)
+    w_pl = tuple(Shard(0) if a in ep else Replicate() for a in names)
+    out_pl = tuple(Shard(0) if a in dp else Partial() if a in ep
+                   else Replicate() for a in names)
+    stat_pl = tuple(Partial() if a in dp or a in ep else Replicate()
+                    for a in names)
+    n_ep = math.prod(mesh.size(names.index(a)) for a in ep)
+    El = E // n_ep
+    e0 = 0
+    for a in ep:
+        m = names.index(a)
+        e0 = e0 * mesh.size(m) + mesh.get_local_rank(m)
+    e0 *= El
+
+    def local(xl, wg, wu, wd, rw):
+        r = route(xl, rw, top_k, C)
+        out = _experts(xl, r, wg, wu, wd, e0=e0, act=act, grouped=grouped)
+        gate_sum = torch.softmax(r.logits, dim=-1).sum(0)
+        top1 = torch.zeros_like(gate_sum).index_add_(
+            0, r.idx[..., 0].reshape(-1),
+            torch.ones(r.idx[..., 0].numel(), dtype=gate_sum.dtype,
+                       device=gate_sum.device))
+        return out, gate_sum / n_ep, top1 / n_ep
+
+    out, gate_sum, top1 = per_device(
+        local, (out_pl, stat_pl, stat_pl),
+        (x_pl, w_pl, w_pl, w_pl, tuple(Replicate() for _ in names)),
+        mesh)(xg, w_gate, w_up, w_down, router_w)
+    T = G * Tl
+    aux = E * torch.sum((gate_sum / T) * (top1 / T))
     return out, aux
 
 
@@ -131,7 +237,7 @@ def moe_dispatch_combine(x, w_gate, w_up, w_down, router_w, *, top_k: int,
                                     capacity_factor)
     out, aux = _dispatch(x[None], w_gate, w_up, w_down, router_w,
                          top_k=top_k, C=C, act=act)
-    return out[0], aux
+    return constrain(out[0], "tokens2d"), aux
 
 
 def moe_dispatch_combine_grouped(x, w_gate, w_up, w_down, router_w, *,
@@ -146,9 +252,10 @@ def moe_dispatch_combine_grouped(x, w_gate, w_up, w_down, router_w, *,
     T, d = x.shape
     Tl = T // groups
     C = expert_capacity(Tl, w_gate.shape[0], top_k, capacity_factor)
-    out, aux = _dispatch(x.reshape(groups, Tl, d), w_gate, w_up, w_down,
-                         router_w, top_k=top_k, C=C, act=act)
-    return out.reshape(T, d), aux
+    xg = constrain(x.reshape(groups, Tl, d), "moe_tokens_g")
+    out, aux = _dispatch(xg, w_gate, w_up, w_down, router_w, top_k=top_k,
+                         C=C, act=act, grouped=True)
+    return constrain(out, "moe_tokens_g").reshape(T, d), aux
 
 
 def moe_block(x, p, cfg):
@@ -157,7 +264,7 @@ def moe_block(x, p, cfg):
     x: (B, S, d) -> (out, aux_loss)
     """
     B, S, d = x.shape
-    xf = x.reshape(B * S, d)
+    xf = constrain(x.reshape(B * S, d), "tokens2d")
     groups = cfg.moe_groups or 1
     if groups > 1 and (B * S) % groups == 0:
         out, aux = moe_dispatch_combine_grouped(

@@ -12,21 +12,29 @@ with w_t = exp(-exp(ww x_t + b)) in (0, 1) data-dependent.
 
 ``rwkv6_layer``'s prefill WKV goes through ``kernels/rwkv6.ops.wkv6``,
 which launches the hand-written WKV kernel on a CUDA tensor and runs
-``wkv6_chunked`` on a CPU tensor; the choice follows the tensor's device,
-never a failure.  In training (an input requires grad) the WKV goes
-through ``ops.WKV6Fn``, whose backward launches the hand-written backward
-kernel on the card and runs ``ref.wkv6_bwd_torch`` on the CPU: rwkv6
-trains on both.  The clamp of log_w at ``LOG_W_MIN`` stays outside the
-kernels, in autograd.  Decode's one-step update is plain PyTorch, as it is
-plain jnp in the reference.
+``wkv6_chunked`` on a CPU tensor; a ``meta`` tensor (the dry-run's trace)
+runs ``wkv6_chunked`` directly, costed as one launch of the kernel each way
+(``analysis.kernel_cost.as_kernel``).  The choice follows the tensor's
+device type, never a failure.  On the ``DTensor``s of a sharded step the
+WKV runs per device on its heads (``local_map``; heads over the model axis,
+batch over DP when it shards, as ``cache_specs``' ``wkv`` entry lays out
+the state), one kernel launch a device.  In training (an input requires
+grad) the WKV goes through ``ops.WKV6Fn``, whose backward launches the
+hand-written backward kernel on the card and runs ``ref.wkv6_bwd_torch`` on
+the CPU: rwkv6 trains on both.  The clamp of log_w at ``LOG_W_MIN`` stays
+outside the kernels, in autograd.  Decode's one-step update is plain
+PyTorch, as it is plain jnp in the reference.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.kernel_cost import as_kernel, wkv_cost
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_ref, wkv6_torch
 from repro_torch.models.layers import rms_norm, sigmoid, silu
+from repro_torch.sharding.ctx import (is_dtensor, local_placements,
+                                      per_device)
 
 LOG_W_MIN = -8.0     # clamp per-token log-decay for numerical safety
 
@@ -52,6 +60,18 @@ def _proj_rkvwg(x, x_prev, p):
     return r, k, v, log_w.clamp_min(LOG_W_MIN), g
 
 
+def _wkv(r, k, v, log_w, u):
+    """The WKV on one device's tensors, or per device on DTensors."""
+    if is_dtensor(r):
+        h4, heads = (local_placements("q_heads", r.shape),
+                     local_placements("heads", u.shape))
+        return per_device(_wkv, list(h4), (h4, h4, h4, h4, heads),
+                          r.device_mesh)(r, k, v, log_w, u)
+    if r.device.type == "meta":
+        return as_kernel("rwkv6", wkv6_chunked, wkv_cost, r, k, v, log_w, u)
+    return wkv6(r, k, v, log_w, u)
+
+
 def rwkv6_layer(x, x_prev_tmix, x_prev_cmix, p, cfg):
     """One RWKV6 block over one layer's weights: time mix + channel mix.
     x: (B, S, d); the previous token's normed inputs of the time and
@@ -62,7 +82,7 @@ def rwkv6_layer(x, x_prev_tmix, x_prev_cmix, p, cfg):
     K = d // H
     h = rms_norm(x, p["norm1"])
     r, k, v, log_w, g = _proj_rkvwg(h, x_prev_tmix, p)
-    o = wkv6(r.reshape(B, S, H, K), k.reshape(B, S, H, K),
+    o = _wkv(r.reshape(B, S, H, K), k.reshape(B, S, H, K),
              v.reshape(B, S, H, K), log_w.reshape(B, S, H, K),
              p["u"].reshape(H, K)).reshape(B, S, d)
     o = rms_norm(o, p["ln_x"]) * g

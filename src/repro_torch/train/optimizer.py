@@ -17,7 +17,9 @@ Everything is f32, as in the reference: the step, the bias corrections
 parameters' device.  ``adamw_update`` updates the parameters and the state
 in place (the reference returns new trees): on one card the AdamW state of a
 1.75 B-parameter model is 14 GB, and a second copy would not be free.
-``opt_state_specs`` waits for the port's sharding (ROADMAP Queue A, A10).
+Under a sharded step every tensor here is a ``DTensor``: the state takes
+the parameters' specs (``opt_state_specs``, per leaf of the reference's
+layout), and each in-place update is laid out as its target first.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.interop import at_path, lm_groups, lm_leaves, nest
+from repro_torch.sharding.ctx import like
+from repro_torch.sharding.specs import P, tree_map
 
 
 @dataclass(frozen=True)
@@ -92,6 +96,38 @@ def init_opt_state(params, opt: OptConfig):
                            for path, e in lm_groups(params).items()})}
 
 
+def opt_state_specs(param_specs, opt: OptConfig, abstract_params=None):
+    """Specs of the optimizer state, mirroring the params' (both in the
+    reference's layout).
+
+    ``abstract_params`` (the same tree of shaped leaves, ``input_specs.
+    param_structs``) decides *per leaf* whether the second moment is
+    factored — it must match ``init_opt_state``'s shape-based decision
+    exactly (a stacked per-layer norm is factored, an unstacked 1-D leaf
+    keeps a dense ``v`` even under a factored optimizer).
+    """
+    def leaf(spec, p):
+        st = {"m": spec}
+        factored = (opt.factored and p is not None
+                    and _factored_shape(tuple(p.shape)) is not None)
+        if factored:
+            # pad the spec to full rank, then drop the reduced dim:
+            # v_row reduces the last dim, v_col the second-to-last
+            e = list(spec) + [None] * (len(p.shape) - len(spec))
+            st["v_row"] = P(*e[:-1])
+            st["v_col"] = P(*(e[:-2] + e[-1:]))
+        else:
+            st["v"] = spec
+        return st
+
+    if abstract_params is None:
+        if opt.factored:
+            raise ValueError("factored opt_state_specs needs abstract_params")
+        abstract_params = tree_map(lambda s: None, param_specs)
+    specs = tree_map(leaf, param_specs, abstract_params)
+    return {"step": P(), "state": specs}
+
+
 def global_norm(tree):
     return torch.sqrt(sum(torch.sum(torch.square(t.float()))
                           for _, _, t in lm_leaves(tree)))
@@ -121,7 +157,7 @@ def adamw_update(params, grads, opt_state, opt: OptConfig):
         if "v" in st:
             v = b2 * st["v"].float() + (1 - b2) * torch.square(g)
             denom = torch.sqrt(v / bc2) + opt.eps
-            st["v"].copy_(v)
+            st["v"].copy_(like(v, st["v"]))
         else:
             g2 = torch.square(g)
             v_row = b2 * st["v_row"].float() + (1 - b2) * g2.mean(-1)
@@ -130,11 +166,11 @@ def adamw_update(params, grads, opt_state, opt: OptConfig):
             v_hat = (r[..., None] * c[..., None, :]
                      / torch.clamp_min(r.mean(-1)[..., None, None], 1e-30))
             denom = torch.sqrt(v_hat) + opt.eps
-            st["v_row"].copy_(v_row)
-            st["v_col"].copy_(v_col)
-        st["m"].copy_(m)
+            st["v_row"].copy_(like(v_row, st["v_row"]))
+            st["v_col"].copy_(like(v_col, st["v_col"]))
+        st["m"].copy_(like(m, st["m"]))
         delta = (m / bc1) / denom + opt.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype)
+        return like((p.float() - lr * delta).to(p.dtype), p)
 
     g_groups = lm_groups(grads)
     with torch.no_grad():
@@ -151,10 +187,10 @@ def adamw_update(params, grads, opt_state, opt: OptConfig):
                 ps = [p for _, p in entries]
                 new = upd(torch.stack(ps), torch.stack(gs), st)
                 for i, p in enumerate(ps):
-                    p.copy_(new[i])
+                    p.copy_(like(new[i], p))
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 
 
 __all__ = ("OptConfig", "adamw_update", "global_norm", "init_opt_state",
-           "lr_schedule", "stacked_zeros")
+           "lr_schedule", "opt_state_specs", "stacked_zeros")

@@ -10,21 +10,33 @@ accumulator.  Optional error-feedback int8 gradient compression takes one
 scale per reference leaf, over the whole ``(L, ...)`` stack, with the error
 state kept in the reference's layout (``optimizer.stacked_zeros``).
 
-``make_sharded_train_step`` gives the one-device step for a one-device mesh
-(``launch.mesh``); sharding over more cards waits for the port's
-``sharding/{specs,ctx}`` (ROADMAP Queue A, A10).
+``make_sharded_train_step`` lays parameters, optimizer state and batch out
+by ``sharding.specs`` as ``DTensor``s over a named mesh
+(``launch.mesh.make_mesh``) and runs this step under the activation rules;
+with ``grad_reduce == "pinned"`` the gradients are laid out as their
+parameters before the optimizer reads them.  A one-device list
+(``launch.mesh.make_host_mesh``) gives the plain step.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict
 
 import torch
 
 from repro_torch.interop import at_path, lm_groups, lm_leaves, map_lm_tree
+from repro_torch.launch.input_specs import param_structs
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import whole_over
 from repro_torch.models.lm import lm_loss
+from repro_torch.sharding.ctx import like, make_rules, sharded
+from repro_torch.sharding.specs import (batch_sharded, batch_specs,
+                                        distribute, full,
+                                        param_specs, sanitize_specs,
+                                        to_shardings)
 from repro_torch.train.optimizer import (OptConfig, adamw_update,
-                                         init_opt_state, stacked_zeros)
+                                         init_opt_state, opt_state_specs,
+                                         stacked_zeros)
 
 
 def compress_grads_int8(grads, err_state):
@@ -44,7 +56,7 @@ def compress_grads_int8(grads, err_state):
             scale = torch.clamp_min(amax, 1e-8) / 127.0
             for (layer, _), g, e in zip(entries, gs, errs):
                 deq = torch.clamp(torch.round(g / scale), -127, 127) * scale
-                e.copy_(g - deq)
+                e.copy_(like(g - deq, e))
                 deq_of[(path, layer)] = deq
     return map_lm_tree(grads, lambda p, i, _: deq_of[(p, i)]), err_state
 
@@ -88,19 +100,22 @@ def make_loss_and_grad(cfg: ModelConfig, n_microbatches: int = 1):
 
     def total_grad(params, batch):
         def reshape_mb(x):
+            # a batch split over more devices than divide the microbatch
+            # count is gathered first: no microbatch spans a device's rows
+            x = whole_over(x, 0, n_microbatches)
             return x.reshape(n_microbatches, x.shape[0] // n_microbatches,
                              *x.shape[1:])
         mb = {k: reshape_mb(v) for k, v in batch.items()}
         live_tree, live = _live(params)
-        acc = map_lm_tree(params, lambda _p, _i, t: torch.zeros(
-            t.shape, dtype=torch.float32, device=t.device))
+        acc = map_lm_tree(params, lambda _p, _i, t: torch.zeros_like(
+            t, dtype=torch.float32))
         acc_leaves = [t for _, _, t in lm_leaves(acc)]
         loss_sum = 0.0
         for i in range(n_microbatches):
             loss, metrics = loss_fn(live_tree, {k: v[i] for k, v in mb.items()})
             grads = _grads(loss, live_tree, live)
             for a, (_, _, g) in zip(acc_leaves, lm_leaves(grads)):
-                a.add_(g.float())
+                a.add_(like(g.float(), a))
             loss_sum = loss_sum + loss.detach()
             del grads
         for a in acc_leaves:
@@ -110,13 +125,20 @@ def make_loss_and_grad(cfg: ModelConfig, n_microbatches: int = 1):
 
 
 def train_step_fn(cfg: ModelConfig, opt: OptConfig, n_microbatches: int = 1,
-                  compress: bool = False):
+                  compress: bool = False, grad_shardings=None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``;
-    params and state are updated in place (``adamw_update``)."""
+    params and state are updated in place (``adamw_update``).
+    ``grad_shardings`` (``NamedSharding``s in the reference's layout): lay
+    each gradient out as given before the optimizer reads it."""
     total_grad = make_loss_and_grad(cfg, n_microbatches)
 
     def step(params, opt_state, batch):
         loss, metrics, grads = total_grad(params, batch)
+        if grad_shardings is not None:
+            # pin gradients to the parameter layouts before the optimizer
+            # reads them: under FSDP each device then reduces only its
+            # shard (a reduce-scatter, not an all-reduce and a slice)
+            grads = distribute(grads, grad_shardings)
         if compress:
             grads, err = compress_grads_int8(grads, opt_state["err"])
         params, inner, opt_metrics = adamw_update(
@@ -137,24 +159,52 @@ def make_train_state(cfg: ModelConfig, opt: OptConfig, params,
     return state
 
 
-def make_sharded_train_step(cfg: ModelConfig, opt: OptConfig,
-                            mesh: Sequence, global_batch: int,
-                            n_microbatches: int = 1, compress: bool = False):
-    """The train step for ``mesh``, a list of devices (``launch.mesh``),
-    and its (param, state, batch) specs.  One device: ``train_step_fn``'s
-    step, and no specs (None, None, None).  More devices raise
-    ``NotImplementedError``: the port has no parameter or batch sharding
-    yet (ROADMAP Queue A, A10: ``sharding/{specs,ctx}``)."""
-    if len(mesh) != 1:
-        raise NotImplementedError(
-            f"a train step over {len(mesh)} devices needs the port's "
-            f"sharding (ROADMAP Queue A, A10: sharding/{{specs,ctx}}); "
-            f"one device trains unsharded")
+def make_sharded_train_step(cfg: ModelConfig, opt: OptConfig, mesh,
+                            global_batch: int, n_microbatches: int = 1,
+                            compress: bool = False):
+    """The train step over ``mesh`` and its (param, state, batch) specs.
+
+    ``mesh`` a named ``launch.mesh.Mesh``: parameters, state and batch are
+    laid out by the spec tables (``specs.distribute``: a plain tensor is
+    split locally, a ``DTensor`` kept or redistributed) and the step runs
+    under the activation rules; it returns the parameters and state as
+    ``DTensor``s, updated in place, and the metrics gathered to full
+    tensors.  ``mesh`` a list of one device (``launch.mesh.make_host_mesh``,
+    the counterpart of the reference's one-device host mesh):
+    ``train_step_fn``'s step, and no specs (None, None, None)."""
     if global_batch % max(1, n_microbatches):
         raise ValueError(f"batch {global_batch} does not split into "
                          f"{n_microbatches} microbatches")
-    return (train_step_fn(cfg, opt, n_microbatches, compress),
-            (None, None, None))
+    if not isinstance(mesh, Mesh):
+        if len(mesh) != 1:
+            raise ValueError(f"a train step over {len(mesh)} devices takes a "
+                             f"named mesh (launch.mesh.make_mesh), not a "
+                             f"device list")
+        return (train_step_fn(cfg, opt, n_microbatches, compress),
+                (None, None, None))
+    abstract = param_structs(cfg)
+    p_specs = sanitize_specs(param_specs(cfg, mesh), abstract, mesh)
+    o_specs = {"opt": opt_state_specs(p_specs, opt, abstract)}
+    if compress:
+        o_specs["err"] = p_specs
+    b_specs = batch_specs(cfg, mesh, global_batch, "train")
+    kv_tp_ok = ("model" not in mesh.axis_names
+                or cfg.kv_heads % mesh.shape["model"] == 0)
+    rules = make_rules(mesh, batch_sharded=batch_sharded(
+        mesh, cfg.shard_strategy, global_batch),
+        strategy=cfg.shard_strategy, kv_tp_ok=kv_tp_ok)
+    p_sh = to_shardings(p_specs, mesh)
+    inner = sharded(train_step_fn(
+        cfg, opt, n_microbatches, compress,
+        grad_shardings=p_sh if cfg.grad_reduce == "pinned" else None), rules)
+    o_sh, b_sh = to_shardings(o_specs, mesh), to_shardings(b_specs, mesh)
+
+    def step(params, opt_state, batch):
+        params, opt_state, metrics = inner(
+            distribute(params, p_sh), distribute(opt_state, o_sh),
+            distribute(batch, b_sh))
+        return params, opt_state, full(metrics)
+    return step, (p_specs, o_specs, b_specs)
 
 
 __all__ = ("compress_grads_int8", "make_loss_and_grad",

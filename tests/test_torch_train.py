@@ -398,7 +398,8 @@ def test_sharded_train_step_runs_on_one_device_and_refuses_more():
     _, batch = _batch(cfg)
     _, state, m = step(params, make_train_state(cfg, opt, params), batch)
     assert np.isfinite(float(m["total_loss"]))
-    with pytest.raises(NotImplementedError, match="A10"):
+    # more devices take a named mesh (launch.mesh.make_mesh), not a list
+    with pytest.raises(ValueError, match="named mesh"):
         make_sharded_train_step(cfg, opt, make_host_mesh("cpu", 2), B)
 
 
@@ -460,6 +461,7 @@ def test_train_launcher_with_restart_matches_reference_loop(capsys):
 
 def test_train_launcher_refuses_a_mesh_of_more_devices():
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="sharding"):
+    # a 2-device mesh needs a process group of 2 ranks; this process has none
+    with pytest.raises(SystemExit, match="2 ranks"):
         main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
-              "--steps", "1", "--batch", "2", "--seq", "8", "--mesh", "2"])
+              "--steps", "1", "--batch", "2", "--seq", "8", "--mesh", "2,1"])
